@@ -1,0 +1,18 @@
+"""audioforge_tpu_torch — the PyTorch + CUDA port of audioforge_tpu.
+
+The multi-stream serving step (live chain front half, RNNoise, back half)
+runs on an NVIDIA GPU, with the per-sample recurrences in hand-written CUDA
+kernels (``csrc/``, built with ``nvcc`` at first use into
+``build/audioforge_tpu_torch/``). On a CPU tensor every kernel wrapper runs
+its plain PyTorch twin instead. The JAX package stays the reference; this
+package imports neither ``jax`` nor ``audioforge_tpu``.
+"""
+
+import torch
+
+# f32 matmuls and the pitch correlation (a grouped conv) in full f32: the
+# reference budgets 1e-3 on model activations and 1e-4 RMS on audio
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,157 @@
+"""Build, bind and launch the hand-written CUDA kernels under ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds),
+loaded with :mod:`ctypes` at first use. The library lands in
+``build/audioforge_tpu_torch/`` at the root of the checkout, named by a hash
+of the sources and flags: an edited source rebuilds, an unchanged one loads
+the earlier build. A missing ``nvcc`` or a failed build raises with the
+compiler's output.
+
+Each launcher returns ``cudaGetLastError()``; :func:`launch` raises when it is
+not 0 and otherwise adds one to the kernel's entry in :data:`launch_counts`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "BUILD_DIR",
+    "KERNELS",
+    "launch_counts",
+    "reset_launch_counts",
+    "build",
+    "library",
+    "launch",
+    "check_tensor",
+    "stream_of",
+]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "audioforge_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel name -> (C entry point, argtypes); every entry returns cudaError_t
+KERNELS = {
+    "env_scan": ("afk_env_scan", (_P, _P, _P, _P, _I, _I, _P)),
+    "max_affine_scan": ("afk_max_affine_scan", (_P, _P, _P, _P, _P, _I, _I, _P)),
+    "biquad_cascade": (
+        "afk_biquad_cascade", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "compressor_scan": (
+        "afk_compressor_scan",
+        (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P)),
+}
+
+# launches per kernel since the last reset, counted where the kernel launches
+launch_counts = {name: 0 for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    candidate = home / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        f"nvcc not found on PATH or under {home}: the CUDA kernels of "
+        "audioforge_tpu_torch cannot be built")
+
+
+def _library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libafk_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this source hash is already built.
+    Returns the library path; the compiler's log sits beside it (``.log``)."""
+    out = _library_path()
+    if out.is_file():
+        return out
+    nvcc = _find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{' '.join(cmd)}\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for entry, argtypes in KERNELS.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.afk_error_string.argtypes = (ctypes.c_int,)
+    lib.afk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s launcher; raise if the launch was refused."""
+    lib = library()
+    err = getattr(lib, KERNELS[name][0])(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {lib.afk_error_string(err).decode()} "
+            f"(cudaError {err})")
+    launch_counts[name] += 1
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — the kernels take raw pointers and trust their layout."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor is not contiguous")
+
+
+def stream_of(device: torch.device) -> int:
+    """PyTorch's current stream on ``device`` as a raw handle, after checking
+    that ``device`` is the current CUDA device (the launchers use it)."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"tensor on {device} but the current CUDA device is "
+            f"{torch.cuda.current_device()}")
+    return torch.cuda.current_stream(device).cuda_stream

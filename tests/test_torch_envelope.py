@@ -1,0 +1,38 @@
+"""Port parity: ``env_scan`` (the port of the JAX package's only Pallas
+kernel, ``env_kernel`` in tools/evaluate_scan_kernel_strategy.py:72-87)
+against a ``lax.scan`` of the same per-sample step.
+
+The tool's kernel is a closure and cannot be imported, so its ``step`` is
+copied here. On CPU the port runs the plain twin ``env_scan_plain``; the
+shape is the tool's time-major ``[480, B]`` at B = 64 over 3 blocks, with
+the envelope carried across blocks. Tolerance: 1e-5 abs on the log envelope.
+"""
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from audioforge_tpu_torch.ops.envelope import env_scan
+
+T, B, R = 480, 64, 3
+
+
+def _step(env, v):  # tools/evaluate_scan_kernel_strategy.py:57-61
+    a = jnp.abs(v)
+    c = jnp.where(a > env, 0.3, 0.01)
+    env = c * env + (1 - c) * a
+    return env, jnp.log(jnp.maximum(env, 1e-10))
+
+
+def test_env_scan_matches_reference_scan():
+    xs = np.random.default_rng(0).standard_normal((R, T, B)).astype(np.float32)
+    run = jax.jit(lambda env, x: jax.lax.scan(_step, env, x))
+    env_j = jnp.zeros((B,), jnp.float32)
+    env_t = torch.zeros(B)
+    for r in range(R):
+        env_j, y_j = run(env_j, jnp.asarray(xs[r]))
+        y_t, env_t = env_scan(torch.as_tensor(xs[r]), env_t)
+        np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5)
+        np.testing.assert_allclose(env_t.numpy(), np.asarray(env_j), rtol=1e-6)

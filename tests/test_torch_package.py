@@ -1,0 +1,84 @@
+"""Package-level checks of the PyTorch port: the import rule, the kernel
+build's failure mode without a CUDA toolchain, the wrappers' refusal of
+devices they cannot launch on, and the ``serve`` command line on CPU."""
+
+import subprocess
+import sys
+import wave
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audioforge_tpu_torch import kernels
+from audioforge_tpu_torch.__main__ import main as cli_main
+from audioforge_tpu_torch.ops import biquad, compressor, envelope, scan
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, audioforge_tpu_torch, audioforge_tpu_torch.convert, "
+            "audioforge_tpu_torch.runtime.serving; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m.startswith('audioforge_tpu.') or m == 'audioforge_tpu']; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build()
+
+
+def test_wrappers_refuse_devices_they_cannot_launch_on():
+    meta = dict(device="meta", dtype=torch.float32)
+    x = torch.empty((2, 8), **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        scan.max_affine_scan(x, torch.empty(2, **meta), x, torch.empty(2, **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        envelope.env_scan(x, torch.empty(8, **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        biquad.biquad_cascade(x, torch.empty((2, 1, 2, 5), **meta),
+                              torch.empty((2, 1, 2, 2), device="meta",
+                                          dtype=torch.float64),
+                              torch.empty((2, 1), device="meta", dtype=torch.int32),
+                              torch.empty((2, 1), device="meta", dtype=torch.int32))
+    cfg = compressor.CompressorConfig()
+    with pytest.raises(ValueError, match="unsupported device"):
+        compressor.compressor_scan(cfg, {}, torch.empty(2, **meta), {}, x)
+
+
+def test_check_tensor_rejects_layouts_the_kernels_do_not_take():
+    t = torch.zeros((4, 6))
+    kernels.check_tensor("ok", t, torch.float32, (4, 6), t.device)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.check_tensor("x", t.double(), torch.float32, (4, 6), t.device)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.check_tensor("x", t, torch.float32, (4, 5), t.device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.check_tensor("x", t.t(), torch.float32, (6, 4), t.device)
+
+
+def test_serve_cli_processes_a_wav_on_cpu(tmp_path, capsys):
+    n = 4800  # 0.1 s at 48 kHz
+    t = np.arange(n) / 48000.0
+    pcm = (0.3 * np.sin(2 * np.pi * 200.0 * t) * 32767).astype("<i2")
+    src = tmp_path / "voice.wav"
+    with wave.open(str(src), "wb") as handle:
+        handle.setnchannels(1)
+        handle.setsampwidth(2)
+        handle.setframerate(48000)
+        handle.writeframes(pcm.tobytes())
+    out_dir = tmp_path / "out"
+    assert cli_main(["serve", str(src), "--output-dir", str(out_dir),
+                     "--device", "cpu"]) == 0
+    with wave.open(str(out_dir / "voice.processed.wav"), "rb") as handle:
+        assert handle.getnframes() == n
+        y = np.frombuffer(handle.readframes(n), "<i2")
+    assert np.abs(y).max() > 0
+    assert "1 streams" in capsys.readouterr().out
