@@ -38,7 +38,7 @@ def _cmd_serve(args) -> int:
     cfg = ServingConfig(
         capacity=len(paths),
         suppressor_model=None if args.suppressor == "none" else args.suppressor,
-        chain=lc.LiveChainConfig())
+        chain=lc.LiveChainConfig(deesser_enabled=args.deesser))
     engine = ServingEngine(cfg, device=args.device)
     outputs = [[] for _ in paths]
     for i, audio in enumerate(audios):
@@ -83,10 +83,11 @@ def main(argv=None) -> int:
         "serve", help="process N WAVs together through the batched serving engine")
     serve.add_argument("inputs", nargs="+", help="48 kHz mono 16-bit WAV files")
     serve.add_argument("--output-dir", default="processed")
-    serve.add_argument("--device", default="cpu",
-                       help="torch device, e.g. cpu or cuda")
+    serve.add_argument("--device", default="cuda",
+                       help="torch device: cuda (default) or cpu")
     serve.add_argument("--suppressor", default="rnnoise",
                        choices=("none", "rnnoise"))
+    serve.add_argument("--deesser", action="store_true")
     serve.add_argument("--span", type=int, default=100,
                        help="blocks per step_many call")
     args = parser.parse_args(argv)

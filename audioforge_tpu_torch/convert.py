@@ -3,16 +3,17 @@
 The JAX package and this port hold the same state and controls with a few
 differences of layout:
 
-- biquad state (EQ lanes, K-weighting, the 80 Hz high-pass, the RNNoise
-  input high-pass) is f64 here, f32 there;
+- biquad state (EQ lanes, K-weighting, the 80 Hz high-pass, the owned
+  adaptive high-pass, the hum and harmonic notches, the RNNoise input
+  high-pass) is f64 here, f32 there;
 - the EQ is one cascade here and two precision groups (``lo``, ``hi``) there;
-- the routing state here holds only what the cleanup-off path reads, and
-  there is no de-esser state (the de-esser is not ported yet).
+- the owned adaptive high-pass is a one-section cascade here, so its leaves
+  carry a section axis (``[N, 1, ...]``).
 
-:func:`serving_state` and :func:`chain_params` map numpy trees (for example
-``jax.tree_util.tree_map(np.asarray, tree)``) to tensors; :func:`to_numpy`
-maps a port state back, taking the leaves this port does not carry from a
-reference ``template``. Integer counters and flags keep their dtype.
+:func:`serving_state`, :func:`routing_state` and :func:`chain_params` map
+numpy trees (for example ``jax.tree_util.tree_map(np.asarray, tree)``) to
+tensors; :func:`to_numpy` and :func:`routing_to_numpy` map a port state
+back. Every leaf round-trips; integer counters and flags keep their dtype.
 """
 
 from __future__ import annotations
@@ -22,12 +23,18 @@ import torch
 
 from .models import rnnoise
 
-__all__ = ["rnnoise_weights", "chain_params", "serving_state", "to_numpy"]
+__all__ = ["rnnoise_weights", "chain_params", "serving_state", "routing_state",
+           "to_numpy", "routing_to_numpy"]
 
-_ROUTING_KEYS = ("dc_x1", "dc_y1", "prefilter_z", "hum_line_hz")
+# (path inside the routing state) -> leaves held in f64 by the port
+_ROUTING_F64_LEAVES = (
+    ("prefilter_z",),
+    ("adaptive_hp", "z"),
+    ("hum_notch", "z"),
+    ("harmonic_notch", "z"),
+)
 # (path inside the serving state) -> leaves held in f64 by the port
 _F64_LEAVES = (
-    ("chain", "routing", "prefilter_z"),
     ("chain", "compressor", "meter", "kz"),
     ("chain", "out_lufs", "kz"),
     ("chain", "eq", "z"),
@@ -63,13 +70,23 @@ def chain_params(tree, device="cpu") -> dict:
     return _tree_to_torch(tree, device)
 
 
+def routing_state(tree, device="cpu") -> dict:
+    """A reference routing state (numpy leaves, stream axis first) -> the
+    port's."""
+    out = _tree_to_torch(tree, device)
+    out["adaptive_hp"] = {k: v.unsqueeze(1).contiguous()
+                          for k, v in out["adaptive_hp"].items()}
+    for path in _ROUTING_F64_LEAVES:
+        _set(out, path, _get(out, path).to(torch.float64))
+    return out
+
+
 def serving_state(tree, device="cpu") -> dict:
     """A reference serving state (numpy leaves, stream axis first) -> the
     port's serving state."""
     out = _tree_to_torch(tree, device)
     chain = out["chain"]
-    chain.pop("deesser", None)
-    chain["routing"] = {k: chain["routing"][k] for k in _ROUTING_KEYS}
+    chain["routing"] = routing_state(tree["chain"]["routing"], device)
     eq = chain["eq"]
     chain["eq"] = {k: torch.cat([eq["lo"][k], eq["hi"][k]], dim=1).contiguous()
                    for k in eq["lo"]}
@@ -86,17 +103,25 @@ def _tree_to_numpy(tree):
     return a.astype(np.float32) if a.dtype == np.float64 else a
 
 
+def _routing_layout(routing: dict) -> dict:
+    """Drop the owned high-pass's section axis (numpy leaves)."""
+    return dict(routing, adaptive_hp={k: v[:, 0]
+                                      for k, v in routing["adaptive_hp"].items()})
+
+
+def routing_to_numpy(state) -> dict:
+    """A port routing state -> the reference layout (numpy)."""
+    return _routing_layout(_tree_to_numpy(state))
+
+
 def to_numpy(state, template) -> dict:
     """A port serving state -> the reference layout (numpy). ``template`` is
-    a reference serving state (numpy) that supplies the EQ group split and
-    the leaves the port does not carry (cleanup routing state, de-esser)."""
+    a reference serving state (numpy) that supplies the EQ group split."""
     out = _tree_to_numpy(state)
-    chain, ref = out["chain"], template["chain"]
-    n_lo = np.shape(ref["eq"]["lo"]["z"])[1]
+    chain = out["chain"]
+    n_lo = np.shape(template["chain"]["eq"]["lo"]["z"])[1]
     eq = chain["eq"]
     chain["eq"] = {"lo": {k: v[:, :n_lo] for k, v in eq.items()},
                    "hi": {k: v[:, n_lo:] for k, v in eq.items()}}
-    chain["routing"] = {**ref["routing"], **chain["routing"]}
-    if "deesser" in ref:
-        chain["deesser"] = ref["deesser"]
+    chain["routing"] = _routing_layout(chain["routing"])
     return out

@@ -21,6 +21,8 @@
 // spread a 1024-stream fleet over more SMs.
 constexpr int AFK_THREADS = 64;
 
+AFK_HD int afk_imax(int a, int b) { return a > b ? a : b; }
+
 // jnp.clip(v, lo, hi) == minimum(maximum(v, lo), hi)
 AFK_HD float afk_clip(float v, float lo, float hi) {
     return fminf(fmaxf(v, lo), hi);

@@ -1,8 +1,9 @@
 """Build, bind and launch the hand-written CUDA kernels under ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-loaded with :mod:`ctypes` at first use. The library lands in
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per source,
+all started together) and links the objects into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), loaded
+with :mod:`ctypes` at first use. The library lands in
 ``build/audioforge_tpu_torch/`` at the root of the checkout, named by a hash
 of the sources and flags: an edited source rebuilds, an unchanged one loads
 the earlier build. A missing ``nvcc`` or a failed build raises with the
@@ -41,10 +42,15 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "audioforge_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Sources built with -fmad=false: every product and sum rounds on its own, as
+# the plain twins' elementwise ops round them. These kernels compare smoothed
+# levels with thresholds, and a contracted FMA would move a level by an ulp
+# and flip a decision.
+NO_FMA_SOURCES = ("cleanup_scan.cu", "deesser_scan.cu", "gate_scan.cu")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # kernel name -> (C entry point, argtypes); every entry returns cudaError_t
 KERNELS = {
     "env_scan": ("afk_env_scan", (_P, _P, _P, _P, _I, _I, _P)),
@@ -54,6 +60,15 @@ KERNELS = {
     "compressor_scan": (
         "afk_compressor_scan",
         (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P)),
+    "gate_scan": (
+        "afk_gate_scan",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I,
+         _I, _P)),
+    "deesser_scan": (
+        "afk_deesser_scan", (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P)),
+    "cleanup_scan": (
+        "afk_cleanup_scan",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _D, _P)),
 }
 
 # launches per kernel since the last reset, counted where the kernel launches
@@ -79,7 +94,7 @@ def _find_nvcc() -> str:
 
 
 def _library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + NO_FMA_SOURCES).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -94,18 +109,33 @@ def build() -> Path:
         return out
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{log}")
-    out.with_suffix(".log").write_text(log)
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        sources = sorted(CSRC.glob("*.cu"))
+        jobs = []
+        for src in sources:
+            fmad = ("-fmad=false",) if src.name in NO_FMA_SOURCES else ()
+            cmd = [nvcc, *NVCC_FLAGS, *fmad, "-c", "-o", f"{tmp}/{src.stem}.o",
+                   str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", f"{tmp}/lib.so", *(f"{tmp}/{src.stem}.o" for src in sources)]
+        log = []
+        for cmd, proc in jobs:
+            log.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                for _, other in jobs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode}:\n"
+                    f"{' '.join(cmd)}\n{log[-1]}")
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{' '.join(link)}\n{log[-1]}")
+        out.with_suffix(".log").write_text("".join(log))
+        os.replace(f"{tmp}/lib.so", out)
     return out
 
 

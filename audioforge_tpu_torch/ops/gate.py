@@ -2,9 +2,9 @@
 
 Counterpart of ``audioforge_tpu/ops/gate.py`` (every mode). The gain
 smoother feeds back into the state machine, so the recurrence is
-sequential; in this port it is still a plain PyTorch loop over samples on
-``[N]`` tensors (one small launch per operation on the card). Its
-hand-written kernel is the next item of the ROADMAP's kernel queue (K1).
+sequential: on the card it is the hand-written ``gate_scan`` kernel
+(``csrc/gate_scan.cu``, one thread per stream), on the CPU the per-sample
+loop :func:`gate_process_plain`.
 """
 
 from __future__ import annotations
@@ -13,10 +13,12 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import kernels
 from . import util
 
 __all__ = ["THRESHOLD_ONLY", "VAD_ASSISTED", "VAD_ONLY", "GateConfig",
-           "gate_init", "gate_params", "gate_process"]
+           "PARAM_KEYS", "FLOAT_KEYS", "INT_KEYS", "gate_init", "gate_params",
+           "gate_process", "gate_process_plain"]
 
 THRESHOLD_ONLY = 0
 VAD_ASSISTED = 1
@@ -45,6 +47,19 @@ VAD_ASSISTED_CONTINUOUS_SCALE = 0.30
 VAD_ONLY_CONTINUOUS_SCALE = 0.45
 
 _CLOSED, _OPENING, _OPEN, _UNCERTAIN, _RELEASING = range(5)
+
+# kernel rows (csrc/gate_scan.cu GP_*, GF_*, GI_*); booleans travel as int32
+PARAM_KEYS = ("threshold_db", "attack_coeff", "release_coeff")
+FLOAT_KEYS = ("rms_envelope_sq", "detector_level_db", "current_gain",
+              "fused_gate_score", "vad_smoothed_probability",
+              "previous_vad_probability", "peak_level")
+INT_KEYS = ("hold_remaining", "is_open", "effective_gate_open",
+            "has_effective_gate_state", "chatter_window_remaining",
+            "chatter_transition_count", "chatter_cooldown",
+            "chatter_event_count", "gate_state", "fused_gate_open",
+            "auto_relax_remaining")
+_BOOL_KEYS = frozenset(("is_open", "effective_gate_open",
+                        "has_effective_gate_state", "fused_gate_open"))
 
 
 @dataclass(frozen=True)
@@ -92,26 +107,96 @@ def gate_params(config: GateConfig, threshold_db=None, attack_ms=None,
     }
 
 
+def _scan_consts(config: GateConfig) -> tuple:
+    """The f32 smoothing pairs and sample counts the recurrence uses, in
+    the order of the ``gate_scan`` launcher's arguments."""
+    return (*util.f32_pair(config._coeff(DETECTOR_RMS_MS)),
+            *util.f32_pair(config._coeff(VAD_CONTINUOUS_SMOOTH_MS)),
+            config._ms(DETECTOR_HOLD_MS), config._ms(CHATTER_WINDOW_MS),
+            config._ms(CHATTER_COOLDOWN_MS), config._ms(CHATTER_AUTO_RELAX_MS))
+
+
+def _metrics(s) -> dict:
+    return {
+        "is_open": s["is_open"],
+        "gain": s["current_gain"],
+        "chatter_events": s["chatter_event_count"],
+        "fused_score": s["fused_gate_score"],
+        "gate_state": s["gate_state"],
+        "detector_level_db": s["detector_level_db"],
+        "auto_relax_active": s["auto_relax_remaining"] > 0,
+    }
+
+
 def gate_process(config: GateConfig, state, x, vad_probability, vad_available,
                  vad_gate_open, vad_threshold, params):
     """Gate ``x: f32 [N, T]``. VAD inputs and ``params`` leaves are per-stream
-    ``[N]`` tensors, constant over the block. Returns
-    ``(new_state, y, metrics)``."""
+    ``[N]`` tensors, constant over the block. A CPU tensor runs
+    :func:`gate_process_plain`, a CUDA tensor the ``gate_scan`` kernel.
+    Returns ``(new_state, y, metrics)``."""
     if not config.enabled:
         return state, x, {
             "is_open": state["is_open"], "gain": state["current_gain"],
             "chatter_events": state["chatter_event_count"],
             "fused_score": state["fused_gate_score"],
             "auto_relax_active": state["auto_relax_remaining"] > 0}
+    if x.device.type == "cpu":
+        return gate_process_plain(config, state, x, vad_probability,
+                                  vad_available, vad_gate_open, vad_threshold,
+                                  params)
+    if x.device.type != "cuda":
+        raise ValueError(f"gate_scan: unsupported device {x.device}")
+    s, y = _gate_scan(config, state, x, vad_probability, vad_available,
+                      vad_gate_open, vad_threshold, params)
+    return s, y, _metrics(s)
+
+
+def _gate_scan(config, state, x, vad_probability, vad_available,
+               vad_gate_open, vad_threshold, params):
+    """One ``gate_scan`` launch over ``x``; returns ``(new_state, y)``."""
+    n, T = x.shape
+    dev = x.device
+    p = torch.stack([params[k] for k in PARAM_KEYS])
+    if config.mode == THRESHOLD_ONLY:  # the kernel reads no VAD input
+        vad = torch.zeros((4, n), dtype=torch.float32, device=dev)
+    else:
+        vad = torch.stack([vad_probability.to(torch.float32),
+                           vad_available.to(torch.float32),
+                           vad_gate_open.to(torch.float32),
+                           vad_threshold.to(torch.float32)])
+    fs_in = torch.stack([state[k] for k in FLOAT_KEYS])
+    is_in = torch.stack([state[k].to(torch.int32) for k in INT_KEYS])
+    kernels.check_tensor("gate_scan x", x, torch.float32, (n, T), dev)
+    kernels.check_tensor("gate_scan params", p, torch.float32,
+                         (len(PARAM_KEYS), n), dev)
+    kernels.check_tensor("gate_scan vad", vad, torch.float32, (4, n), dev)
+    kernels.check_tensor("gate_scan float state", fs_in, torch.float32,
+                         (len(FLOAT_KEYS), n), dev)
+    kernels.check_tensor("gate_scan int state", is_in, torch.int32,
+                         (len(INT_KEYS), n), dev)
+    y = torch.empty_like(x)
+    fs_out = torch.empty_like(fs_in)
+    is_out = torch.empty_like(is_in)
+    kernels.launch("gate_scan", x.data_ptr(), p.data_ptr(), vad.data_ptr(),
+                   fs_in.data_ptr(), is_in.data_ptr(), y.data_ptr(),
+                   fs_out.data_ptr(), is_out.data_ptr(), n, T, int(config.mode),
+                   *_scan_consts(config), kernels.stream_of(dev))
+    s = dict(zip(FLOAT_KEYS, fs_out.unbind(0)))
+    for k, v in zip(INT_KEYS, is_out.unbind(0)):
+        s[k] = v != 0 if k in _BOOL_KEYS else v
+    return s, y
+
+
+def gate_process_plain(config: GateConfig, state, x, vad_probability,
+                       vad_available, vad_gate_open, vad_threshold, params):
+    """Plain PyTorch twin of the ``gate_scan`` kernel: the per-sample loop
+    over ``x: f32 [N, T]`` (one small launch per operation on the card).
+    Same arguments and result as :func:`gate_process`."""
     mode = config.mode
     thr = params["threshold_db"]
     atk_c, rel_c = params["attack_coeff"], params["release_coeff"]
-    rms_c, rms_1 = util.f32_pair(config._coeff(DETECTOR_RMS_MS))
-    sm_c, sm_1 = util.f32_pair(config._coeff(VAD_CONTINUOUS_SMOOTH_MS))
-    hold_samples = config._ms(DETECTOR_HOLD_MS)
-    chatter_window = config._ms(CHATTER_WINDOW_MS)
-    chatter_cooldown = config._ms(CHATTER_COOLDOWN_MS)
-    auto_relax_samples = config._ms(CHATTER_AUTO_RELAX_MS)
+    (rms_c, rms_1, sm_c, sm_1, hold_samples, chatter_window, chatter_cooldown,
+     auto_relax_samples) = _scan_consts(config)
 
     vad_in_use = mode != THRESHOLD_ONLY
     if vad_in_use:
@@ -283,13 +368,4 @@ def gate_process(config: GateConfig, state, x, vad_probability, vad_available,
         }
     if vad_in_use:
         s["previous_vad_probability"] = prob
-    metrics = {
-        "is_open": s["is_open"],
-        "gain": s["current_gain"],
-        "chatter_events": s["chatter_event_count"],
-        "fused_score": s["fused_gate_score"],
-        "gate_state": s["gate_state"],
-        "detector_level_db": s["detector_level_db"],
-        "auto_relax_active": s["auto_relax_remaining"] > 0,
-    }
-    return s, y, metrics
+    return s, y, _metrics(s)

@@ -6,9 +6,10 @@ halves for one stream and mapped them with ``vmap``; here per-stream control
 values are ``[N]`` tensors and the batch axis is explicit.
 
 - :func:`front_block`: sanitize, input meters and true peak, routing (DC
-  blocker + 80 Hz high-pass), the block-cadence VAD auto-gate, smart gate.
-- :func:`back_block`: EQ -> compressor -> lookahead limiter -> true-peak
-  limiter -> output clamp, meters and momentary LUFS.
+  blocker + 80 Hz high-pass, or gentle/strong hum and rumble cleanup), the
+  block-cadence VAD auto-gate, smart gate.
+- :func:`back_block`: de-esser -> EQ -> compressor -> lookahead limiter ->
+  true-peak limiter -> output clamp, meters and momentary LUFS.
 
 Leaves listed in :data:`SHARED_LEAVES` are constants shared by every stream
 (no stream axis); slot resets leave them alone.
@@ -16,13 +17,14 @@ Leaves listed in :data:`SHARED_LEAVES` are constants shared by every stream
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from ..models import vad_gate as vadm
 from ..ops import compressor as comp_ops
+from ..ops import deesser as des_ops
 from ..ops import eq as eq_ops
 from ..ops import gate as gate_ops
 from ..ops import limiter as lim_ops
@@ -58,7 +60,9 @@ def effective_limiter_ceiling_db(ceiling_db: float,
 class LiveChainConfig:
     """Static topology of the live chain; continuous values live in the
     params (:func:`live_params`). ``cleanup_mode`` is "off", "gentle" or
-    "strong" (or the integer code 0/1/2)."""
+    "strong" (or the integer code 0/1/2). ``deesser_enabled`` switches the
+    de-esser on whatever ``deesser.enabled`` says, as the application path
+    of the reference ties them (ROADMAP F3)."""
 
     sample_rate: float = 48000.0
     cleanup_mode: str | int = "off"
@@ -73,11 +77,9 @@ class LiveChainConfig:
     sidechain_highpass_enabled: bool = True
     limiter_enabled: bool = True
     careful_output_enabled: bool = True
+    deesser: des_ops.DeEsserConfig = field(default_factory=des_ops.DeEsserConfig)
 
     def __post_init__(self):
-        if self.deesser_enabled:
-            raise NotImplementedError(
-                "the de-esser is not ported yet (ROADMAP queue 1, de-esser)")
         self.routing  # validates cleanup_mode
 
     @property
@@ -89,6 +91,10 @@ class LiveChainConfig:
             mode = route_ops.CLEANUP_MODES[mode]
         return route_ops.RoutingConfig(sample_rate=self.sample_rate,
                                        cleanup_mode=mode)
+
+    @property
+    def deesser_effective(self) -> des_ops.DeEsserConfig:
+        return replace(self.deesser, enabled=self.deesser_enabled)
 
     @property
     def gate(self) -> gate_ops.GateConfig:
@@ -161,6 +167,7 @@ def live_init(config: LiveChainConfig, eq_bands=None, *, n: int, device) -> dict
         "routing": route_ops.routing_init(config.routing, **kw),
         "gate": gate_ops.gate_init(**kw),
         "vad": vadm.vad_gate_init(config.vad, **kw),
+        "deesser": des_ops.deesser_init(config.deesser_effective, **kw),
         "eq": eq_ops.eq_init(eq_bands, fs, **kw),
         "compressor": comp_ops.compressor_init(config.compressor, **kw),
         "limiter": lim_ops.limiter_init(config.limiter, **kw),
@@ -227,8 +234,14 @@ def back_block(config: LiveChainConfig, params, state, x, evidence):
     new_state = dict(state)
     zeros = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     y = x
-    metrics = {"deesser_gain_reduction_db": zeros,
-               "deesser_detector_confidence": zeros}
+    if config.deesser_enabled:
+        new_state["deesser"], y, dm = des_ops.deesser_process(
+            config.deesser_effective, state["deesser"], y)
+        metrics = {"deesser_gain_reduction_db": dm["reduction_db"],
+                   "deesser_detector_confidence": dm["confidence"]}
+    else:
+        metrics = {"deesser_gain_reduction_db": zeros,
+                   "deesser_detector_confidence": zeros}
 
     if config.eq_enabled:
         new_state["eq"], y = eq_ops.eq_process(state["eq"], y)

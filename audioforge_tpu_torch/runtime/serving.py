@@ -9,10 +9,13 @@ is dropped. Suppressor failures are per-slot state: a non-finite model
 output falls back to the latency-aligned dry signal, and three such events
 within 2 s soft-reset the model state (2 s cooldown).
 
+The engine runs on the card unless it is given ``device="cpu"``; without a
+CUDA device, building one for the card raises.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): in-step Silero VAD, the DeepFilterNet suppressors, the de-esser and
-stream-axis sharding. ``step_pipelined``, the free-run loop and
-``set_stream_eq`` are not present.
+item): in-step Silero VAD, the DeepFilterNet suppressors and stream-axis
+sharding. ``step_pipelined``, the free-run loop and ``set_stream_eq`` are
+not present.
 """
 
 from __future__ import annotations
@@ -232,7 +235,7 @@ class ServingEngine:
 
     Usage::
 
-        eng = ServingEngine(ServingConfig(capacity=16), device="cuda")
+        eng = ServingEngine(ServingConfig(capacity=16))   # on the card
         slot = eng.attach(sink=lambda block: ...)   # block: float32[480]
         eng.push(slot, samples)                     # 48 kHz mono
         eng.step()                                  # or eng.step_many(k)
@@ -241,14 +244,18 @@ class ServingEngine:
         eng.detach(slot)
     """
 
-    def __init__(self, config: ServingConfig | None = None, *, device="cpu",
+    def __init__(self, config: ServingConfig | None = None, *, device="cuda",
                  eq_bands=None, sharding=None, rnnoise_weights=None):
         if sharding is not None:
             raise NotImplementedError(
                 "stream-axis sharding is not ported yet (ROADMAP queue 1, "
                 "multi-GPU)")
-        self.config = config or ServingConfig()
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ServingEngine runs on a CUDA device by default and none is "
+                "available: pass device='cpu' to run the plain PyTorch path")
+        self.config = config or ServingConfig()
         n = self.config.capacity
         self._lock = threading.Lock()
         self._slots = [_Slot() for _ in range(n)]

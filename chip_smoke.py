@@ -7,16 +7,28 @@ of which stops the script with a non-zero exit when it fails:
    versions; no CUDA device is a failure (there is no CPU path);
 1. build: compiles the CUDA kernels under audioforge_tpu_torch/csrc/;
 2. kernels: each kernel against its plain PyTorch twin on the card, at the
-   shapes the serving path gives it, with both times from CUDA events;
-3. slice: the serving engine at fleet 1024 (RNNoise + default live chain)
-   through 5 x step() and step_many(10): finite output within the limiter
-   ceiling, and every on-path kernel launched its expected count per block;
-4. card against CPU: the same 4-stream engine on the card and on the CPU
-   (plain twins) for 10 blocks.
+   shapes the serving path gives it, with both times from CUDA events and
+   the least time the card could take (bytes over 3.35 TB/s or operations
+   over the f32/f64 peak, whichever is larger);
+3. default path: the serving engine at fleet 1024 (RNNoise + default live
+   chain) through one warm-up step, then 5 x step() and step_many(10) with
+   the launch counts read over those 15 blocks: finite output within the
+   limiter ceiling, and every on-path kernel launched its expected count per
+   block;
+4. full live chain: the engine at fleet 1024 with strong cleanup and the
+   de-esser for 60 blocks (two hum windows complete): launches per block,
+   finite output within the ceiling, hum detected on the hum streams, de-esser
+   reduction on the sibilant streams, seconds per block and a layer split;
+5. card against CPU: the same 4-stream engines on the card and on the CPU
+   (plain twins), default path for 10 blocks and full chain for 27 blocks
+   (a hum window completes);
+6. profile (information): a ``torch.profiler`` reading of 3 steps on each
+   path at fleet 1024: CUDA kernels per step, the card's busy share and the
+   kernels that take the most time.
 
 The line before the last is a JSON object with every kernel's launches on
-the slice run, error against its twin and times; the last line is
-``{"ok": true, "device": {...}}``.
+the full-chain run, error against its twin, times and bound; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -33,6 +45,10 @@ BLOCK = 480
 FLEET = 1024
 FS = 48000.0
 DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+FP64_OPS_PER_S = 34e12      # H100 SXM f64 outside the tensor cores
+FULL_BLOCKS = 60            # hum windows (250 ms) complete at blocks 25 and 50
 
 
 def fail(msg: str) -> None:
@@ -59,6 +75,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(bytes_moved: float, f32_ops: float = 0.0, f64_ops: float = 0.0):
+    """``(bound_ms, bound_by)``: the larger of the bytes' time at the HBM rate
+    and the operations' time at their type's peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(f32_ops / FP32_OPS_PER_S, f64_ops / FP64_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def speech_like(n: int, n_blocks: int, seed: int) -> np.ndarray:
     """Voiced bursts with per-stream pitch, hiss, and one transient over
     full scale per stream, ``[n, n_blocks * 480]``."""
@@ -73,6 +97,30 @@ def speech_like(n: int, n_blocks: int, seed: int) -> np.ndarray:
     at = rng.integers(0, x.shape[1] - 64, n)
     for i in range(n):
         x[i, at[i]: at[i] + 48] = 1.6 * np.sign(x[i, at[i]: at[i] + 48] + 1e-3)
+    return x.astype(np.float32)
+
+
+def mic_capture(n: int, n_blocks: int, seed: int) -> np.ndarray:
+    """Four stream classes (i % 4) under a voice: 0 hum at 50.4 Hz with its
+    harmonic, 1 hum at 59.7 Hz, 2 sibilance (0.25 at 6.8 kHz over a 0.05
+    body), 3 low plosive thumps; ``[n, n_blocks * 480]``."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_blocks * BLOCK) / FS
+    phase = rng.uniform(0, 2 * np.pi, (n, 1))
+    f0 = rng.uniform(120.0, 200.0, (n, 1))
+    voiced = sum(np.sin(2 * np.pi * f0 * h * t + h * phase) / h for h in range(1, 5))
+    voice = 0.08 * voiced * (np.sin(2 * np.pi * 3.0 * t + phase) > -0.2)
+    cls = np.arange(n)[:, None] % 4
+    x = voice + 0.003 * rng.standard_normal((n, t.size))
+    x += (cls == 0) * (0.1 * np.sin(2 * np.pi * 50.4 * t + phase)
+                       + 0.03 * np.sin(2 * np.pi * 100.8 * t + phase))
+    x += (cls == 1) * 0.08 * np.sin(2 * np.pi * 59.7 * t + phase)
+    sib = 0.25 * np.sin(2 * np.pi * 6800.0 * t + phase)
+    x = np.where(cls == 2, 0.05 * voiced + sib, x)
+    thump = np.zeros(t.size)
+    for at in range(2000, t.size - 1500, 9000):
+        thump[at:at + 1500] += 0.7 * np.hanning(1500)
+    x += (cls == 3) * thump
     return x.astype(np.float32)
 
 
@@ -100,25 +148,50 @@ def phase1_build():
     log = lib_path.with_suffix(".log")
     if log.is_file():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
 
 
-def phase2_kernels(card: str) -> dict:
+class Results:
+    """Per-kernel numbers for the JSON line; a kernel checked in several
+    configurations keeps its worst error and the times of that one."""
+
+    def __init__(self, card: str):
+        self.card = card
+        self.rows = {}
+
+    def report(self, name, err, tol, ms, plain_ms, shape, bytes_moved,
+               f32_ops=0.0, f64_ops=0.0):
+        bound_ms, bound_by = bound(bytes_moved, f32_ops, f64_ops)
+        print(f"[2] {name} {shape}: max_abs_err {err:.3e} (tol {tol:g}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}) ({self.card})", flush=True)
+        check(np.isfinite(err) and err <= tol, f"{name} disagrees with its plain twin")
+        prev = self.rows.get(name)
+        if prev is None or err > prev["max_abs_err"]:
+            self.rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "library_ms": None}
+
+
+def _max_err(a: dict, b: dict) -> float:
+    """Largest difference over matching tensors of two (nested) dicts."""
+    worst = 0.0
+    for k, v in a.items():
+        if isinstance(v, dict):
+            worst = max(worst, _max_err(v, b[k]))
+        else:
+            worst = max(worst, (v.double() - b[k].double()).abs().max().item())
+    return worst
+
+
+def phase2_pr1_kernels(res: Results) -> None:
     from audioforge_tpu_torch.ops import biquad, eq, envelope, scan
     from audioforge_tpu_torch.ops import compressor as comp
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(7)
-    results = {}
-
-    def report(name, err, tol, ms, plain_ms, shape):
-        print(f"[2] {name} {shape}: max_abs_err {err:.3e} (tol {tol:g}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.3f} ms ({card})", flush=True)
-        check(np.isfinite(err) and err <= tol, f"{name} disagrees with its plain twin")
-        prev = results.get(name)
-        if prev is None or err > prev["max_abs_err"]:
-            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    n_elem = FLEET * BLOCK
 
     # env_scan at the tool's shapes: [480, 2048] time-major, 50 blocks
     R, B = 50, 2048
@@ -137,7 +210,9 @@ def phase2_kernels(card: str) -> dict:
     err = max((yk - yp).abs().max().item(), (ek - ep).abs().max().item())
     ms = cuda_ms(lambda: env_run(envelope.env_scan), 3) / R
     plain_ms = cuda_ms(lambda: env_run(envelope.env_scan_plain), 1) / R
-    report("env_scan", err, 1e-5, ms, plain_ms, f"[{BLOCK}, {B}] x {R} blocks")
+    # per element: abs, compare/select, 4 for the one-pole, max, log
+    res.report("env_scan", err, 1e-5, ms, plain_ms, f"[{BLOCK}, {B}] x {R} blocks",
+               8 * BLOCK * B, f32_ops=8 * BLOCK * B)
 
     # max_affine_scan as the lookahead limiter drives it, [1024, 480]
     target = torch.tensor(rng.uniform(0.5, 1.0, (FLEET, BLOCK)).astype(np.float32),
@@ -151,7 +226,8 @@ def phase2_kernels(card: str) -> dict:
            - scan.max_affine_scan_plain(v, rho, c, u0)).abs().max().item()
     ms = cuda_ms(lambda: scan.max_affine_scan(v, rho, c, u0), 50)
     plain_ms = cuda_ms(lambda: scan.max_affine_scan_plain(v, rho, c, u0), 2)
-    report("max_affine_scan", err, 1e-5, ms, plain_ms, f"[{FLEET}, {BLOCK}]")
+    res.report("max_affine_scan", err, 1e-5, ms, plain_ms, f"[{FLEET}, {BLOCK}]",
+               12 * n_elem, f32_ops=3 * n_elem)
 
     # biquad_cascade: the EQ with the bench gains and a crossfade in flight
     gains = [-2.5, 1.5, -1.0, 2.0, 3.0, 2.5, 1.5, -2.0, 1.0, -1.5]
@@ -169,8 +245,14 @@ def phase2_kernels(card: str) -> dict:
     err = max((yk - yp).abs().max().item(), (zk - zp).abs().max().item())
     ms = cuda_ms(lambda: biquad.biquad_cascade(*args), 50)
     plain_ms = cuda_ms(lambda: biquad.biquad_cascade_plain(*args), 1)
-    report("biquad_cascade", err, 1e-6, ms, plain_ms,
-           f"[{FLEET}, {BLOCK}] x {st['z'].shape[1]} sections, crossfade in flight")
+    sections = st["z"].shape[1]
+    fading = int((st["fade_remaining"] > 0).sum().item())
+    # per section and sample 9 f64 ops on lane 0; a fading section adds
+    # lane 1 and the blend (9 + 6)
+    f64_ops = BLOCK * (9 * FLEET * sections + 15 * fading)
+    res.report("biquad_cascade", err, 1e-6, ms, plain_ms,
+               f"[{FLEET}, {BLOCK}] x {sections} sections, crossfade in flight",
+               8 * n_elem + FLEET * sections * (40 + 64 + 8), f64_ops=f64_ops)
 
     # compressor_scan, both flag sets of the serving chain's options
     xc = torch.tensor(speech_like(FLEET, 1, 9), device=dev)
@@ -186,20 +268,177 @@ def phase2_kernels(card: str) -> dict:
         sk, yk = comp.compressor_scan(cfg, p, makeup, scan_state, xc)
         sp, yp = comp.compressor_scan_plain(cfg, p, makeup, scan_state, xc)
         err = (yk - yp).abs().max().item()
-        check(max((sk[k] - sp[k]).abs().max().item() for k in ("current_gr_db",))
-              <= 1e-3, "compressor_scan state disagrees with its plain twin")
+        check((sk["current_gr_db"] - sp["current_gr_db"]).abs().max().item() <= 1e-3,
+              "compressor_scan state disagrees with its plain twin")
         ms = cuda_ms(lambda: comp.compressor_scan(cfg, p, makeup, scan_state, xc), 50)
         plain_ms = cuda_ms(
             lambda: comp.compressor_scan_plain(cfg, p, makeup, scan_state, xc), 1)
-        report("compressor_scan", err, 1e-5, ms, plain_ms,
-               f"[{FLEET}, {BLOCK}] {sorted(flags)}")
-    return results
+        # ~70 f32 operations per sample (log10f, powf and sqrtf counted once)
+        res.report("compressor_scan", err, 1e-5, ms, plain_ms,
+                   f"[{FLEET}, {BLOCK}] {sorted(flags)}",
+                   8 * n_elem + FLEET * 4 * 2 * (8 + 12), f32_ops=70 * n_elem)
 
 
-def _engine(capacity: int, device: str, audio: np.ndarray):
+def phase2_gate(res: Results) -> None:
+    """gate_scan in every mode over 30 blocks of 5-10 Hz bursts whose VAD
+    inputs (probability near 0 or near 1) change per block, so hold, chatter
+    and (VAD modes) auto-relax engage."""
+    from audioforge_tpu_torch.ops import gate
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(13)
+    n_blocks = 30
+    t = np.arange(n_blocks * BLOCK) / FS
+    env = np.sin(2 * np.pi * rng.uniform(5.0, 10.0, (FLEET, 1)) * t
+                 + rng.uniform(0, 6, (FLEET, 1))) > 0.2
+    x = torch.tensor((0.2 * env * np.sin(2 * np.pi * 180.0 * t)
+                      + 0.002 * rng.standard_normal((FLEET, t.size))).astype(np.float32),
+                     device=dev)
+    n_elem = FLEET * BLOCK
+    for mode, name in ((gate.THRESHOLD_ONLY, "threshold-only"),
+                       (gate.VAD_ASSISTED, "VAD-assisted"), (gate.VAD_ONLY, "VAD-only")):
+        cfg = gate.GateConfig(mode=mode)
+        p = {k: torch.full((FLEET,), float(np.float32(v)), device=dev)
+             for k, v in gate.gate_params(cfg, attack_ms=5.0, release_ms=60.0).items()}
+        p["threshold_db"] = torch.tensor(rng.uniform(-45, -25, FLEET).astype(np.float32),
+                                         device=dev)
+        st = gate.gate_init(n=FLEET, device=dev)
+        err, diverged = 0.0, 0
+        for b in range(n_blocks):
+            xb = x[:, b * BLOCK:(b + 1) * BLOCK].contiguous()
+            prob = np.where(rng.random(FLEET) > 0.5, rng.uniform(0.7, 1.0, FLEET),
+                            rng.uniform(0.0, 0.3, FLEET))
+            vad = (torch.tensor(prob.astype(np.float32), device=dev),
+                   torch.tensor(rng.random(FLEET) > 0.2, device=dev),
+                   torch.tensor(rng.random(FLEET) > 0.5, device=dev),
+                   torch.full((FLEET,), 0.48, device=dev))
+            sk, yk, _ = gate.gate_process(cfg, st, xb, *vad, p)
+            sp, yp, _ = gate.gate_process_plain(cfg, st, xb, *vad, p)
+            # a stream diverges where a threshold test flipped on a 1-ulp
+            # difference of log10f/powf: its integer state or its audio
+            # departs from the plain twin's
+            stream_err = (yk - yp).abs().amax(dim=1)
+            apart = stream_err > 1e-4
+            for k in gate.INT_KEYS:
+                apart |= sk[k] != sp[k]
+            diverged += int(apart.sum().item())
+            err = max(err, float(torch.where(apart, 0.0, stream_err).max().item()))
+            if b == n_blocks - 1:
+                args = (cfg, st, xb, *vad, p)
+            st = sk
+        chatter = int((st["chatter_event_count"] > 0).sum().item())
+        relax = int((st["auto_relax_remaining"] > 0).sum().item())
+        print(f"[2] gate_scan {name}: {diverged} of {FLEET * n_blocks} stream-blocks "
+              f"diverged from the plain twin (tol 0.1 %); chatter fired on {chatter} "
+              f"streams, {relax} in auto-relax, "
+              f"{int((st['hold_remaining'] > 0).sum())} holding", flush=True)
+        check(diverged <= FLEET * n_blocks // 1000,
+              f"gate_scan ({name}): {diverged} stream-blocks differ from the plain twin")
+        check(chatter > 0 and (relax > 0 or mode == gate.THRESHOLD_ONLY),
+              f"gate_scan ({name}): chatter or auto-relax never engaged")
+        ms = cuda_ms(lambda: gate.gate_process(*args), 50)
+        plain_ms = cuda_ms(lambda: gate.gate_process_plain(*args), 1)
+        # ~35 f32 operations per sample threshold-only, ~80 with VAD fusion
+        ops = (35 if mode == gate.THRESHOLD_ONLY else 80) * n_elem
+        res.report("gate_scan", err, 1e-4, ms, plain_ms, f"[{FLEET}, {BLOCK}] {name}",
+                   8 * n_elem + FLEET * 4 * 2 * 18, f32_ops=ops)
+
+
+def phase2_deesser(res: Results) -> None:
+    from audioforge_tpu_torch.ops import deesser
+
+    dev = torch.device(DEVICE)
+    x = torch.tensor(mic_capture(FLEET, 3, 14), device=dev)
+    n_elem = FLEET * BLOCK
+    for auto in (True, False):
+        cfg = deesser.DeEsserConfig(enabled=True, auto_enabled=auto, threshold_db=-40.0)
+        st = deesser.deesser_init(cfg, n=FLEET, device=dev)
+        for b in range(2):  # warm the envelopes so the reduction is engaged
+            st, _ = deesser.deesser_scan(cfg, st, x[:, b * BLOCK:(b + 1) * BLOCK].contiguous())
+        xb = x[:, 2 * BLOCK:].contiguous()
+        sk, yk = deesser.deesser_scan(cfg, st, xb)
+        sp, yp = deesser.deesser_scan_plain(cfg, st, xb)
+        err = (yk - yp).abs().max().item()
+        serr = _max_err(sk, sp)
+        check(serr <= 1e-3, f"deesser_scan state disagrees with its plain twin ({serr:.3e})")
+        engaged = int((sk["current_reduction_db"] > 0.1).sum().item())
+        check(engaged >= FLEET // 8, f"deesser_scan: reduction on only {engaged} streams")
+        ms = cuda_ms(lambda: deesser.deesser_scan(cfg, st, xb), 50)
+        plain_ms = cuda_ms(lambda: deesser.deesser_scan_plain(cfg, st, xb), 1)
+        name = "auto" if auto else "manual"
+        print(f"[2] deesser_scan {name}: reduction > 0.1 dB on {engaged} streams, "
+              f"max {sk['current_reduction_db'].max().item():.2f} dB", flush=True)
+        # ~270 f32 operations per sample: 9 biquads, envelopes, 4 log10f,
+        # 3 sqrtf, 3 powf, the gain computer per band
+        res.report("deesser_scan", err, 1e-4, ms, plain_ms,
+                   f"[{FLEET}, {BLOCK}] {name}", 8 * n_elem + FLEET * 4 * 2 * 33,
+                   f32_ops=270 * n_elem)
+
+
+def phase2_cleanup(res: Results) -> None:
+    """cleanup_scan on the inputs routing_process gives it: a state whose
+    window ends inside the block, the hum notch retuned to 50.4 Hz with its
+    crossfade in flight."""
+    from audioforge_tpu_torch.ops import routing
+
+    dev = torch.device(DEVICE)
+    x = torch.tensor(mic_capture(FLEET, 2, 15), device=dev)
+    n_elem = FLEET * BLOCK
+    for mode, name in ((routing.CLEANUP_GENTLE, "gentle"), (routing.CLEANUP_STRONG, "strong")):
+        cfg = routing.RoutingConfig(cleanup_mode=mode)
+        st = routing.routing_init(cfg, n=FLEET, device=dev)
+        # after the first block the window ends 200 samples into the second
+        st["window_pos"] = torch.full((FLEET,), cfg.window_samples - 200 - BLOCK,
+                                      dtype=torch.int32, device=dev)
+        st, _, _ = routing.routing_process(cfg, st, x[:, :BLOCK].contiguous())
+        line = torch.full((FLEET,), 50.4, device=dev)
+        for key, mult in (("hum_notch", 1.0), ("harmonic_notch", 2.0)):
+            st[key] = routing._smooth_notch_retune(st[key], line * mult, FS,
+                                                   cfg.notch_fade_samples)
+        st.update(hum_line_hz=line, hum_hold=torch.full_like(st["hum_hold"], 20000),
+                  hum_strength=torch.full_like(line, 0.5),
+                  harmonic_strength=torch.full_like(line, 0.3))
+        captured = {}
+        run = routing.cleanup_scan
+
+        def spy(*args):
+            captured["args"] = args
+            return run(*args)
+
+        routing.cleanup_scan = spy
+        try:
+            routing.routing_process(cfg, st, x[:, BLOCK:].contiguous())
+        finally:
+            routing.cleanup_scan = run
+        args = captured["args"]
+        check(bool((args[2]["boundary"] == 200).all()), "the window does not end mid-block")
+        check(bool((args[1]["hum_notch"]["fade_remaining"] > 0).all()),
+              "no notch crossfade in flight")
+        ok, yk = routing.cleanup_scan(*args)
+        op, yp = routing.cleanup_scan_plain(*args)
+        err = (yk - yp).abs().max().item()
+        serr = _max_err(ok, op)
+        check(serr <= 1e-5, f"cleanup_scan state disagrees with its plain twin ({serr:.3e})")
+        check(torch.equal(ok["rumble_hold"], op["rumble_hold"]), "cleanup_scan rumble hold")
+        ms = cuda_ms(lambda: routing.cleanup_scan(*args), 50)
+        plain_ms = cuda_ms(lambda: routing.cleanup_scan_plain(*args), 1)
+        fading = sum(int((args[1][k]["fade_remaining"] > 0).sum().item())
+                     for k in ("hum_notch", "harmonic_notch"))
+        # f32: ~20 rumble operations per sample; f64: DC blocker (3), two
+        # notches' lane 0 and mix (12 each), lane 1 and blend while fading (12)
+        f64_ops = BLOCK * (27 * FLEET + 12 * fading)
+        res.report("cleanup_scan", err, 1e-5, ms, plain_ms,
+                   f"[{FLEET}, {BLOCK}] {name}, window ends at t=200, crossfade in flight",
+                   8 * n_elem + FLEET * (4 * (8 + 20 + 10) + 8 * 8 * 2),
+                   f32_ops=20 * n_elem, f64_ops=f64_ops)
+
+
+def _engine(capacity: int, device: str, audio: np.ndarray, chain=None):
+    from audioforge_tpu_torch.runtime import live_chain as lc
     from audioforge_tpu_torch.runtime.serving import ServingConfig, ServingEngine
 
-    eng = ServingEngine(ServingConfig(capacity=capacity), device=device)
+    cfg = ServingConfig(capacity=capacity, chain=chain or lc.LiveChainConfig())
+    eng = ServingEngine(cfg, device=device)
     outs = [[] for _ in range(capacity)]
     for i in range(capacity):
         slot = eng.attach(sink=lambda blk, i=i: outs[i].append(blk))
@@ -207,57 +446,125 @@ def _engine(capacity: int, device: str, audio: np.ndarray):
     return eng, outs
 
 
-def phase3_slice(card: str) -> dict:
-    from audioforge_tpu_torch import kernels
+def full_chain():
     from audioforge_tpu_torch.runtime import live_chain as lc
 
-    n_blocks = 15
-    audio = speech_like(FLEET, n_blocks, 11)
-    t0 = time.perf_counter()
-    eng, outs = _engine(FLEET, DEVICE, audio)
-    print(f"[3] engine at fleet {FLEET} built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        eng.step()
-    t_step = (time.perf_counter() - t0) / 5
-    t0 = time.perf_counter()
-    eng.step_many(10)
-    t_many = (time.perf_counter() - t0) / 10
-    counts = dict(kernels.launch_counts)
-    print(f"[3] launches over {n_blocks} blocks: {counts}", flush=True)
+    return lc.LiveChainConfig(cleanup_mode="strong", deesser_enabled=True)
+
+
+def _check_output(outs, n_blocks: int, capacity: int) -> float:
+    from audioforge_tpu_torch.runtime import live_chain as lc
 
     y = np.stack([np.concatenate(o) for o in outs])
-    check(y.shape == (FLEET, n_blocks * BLOCK), f"output shape {y.shape}")
+    check(y.shape == (capacity, n_blocks * BLOCK), f"output shape {y.shape}")
     check(bool(np.isfinite(y).all()), "non-finite output")
     ceiling = 10.0 ** (lc.effective_limiter_ceiling_db(-1.0, True) / 20.0)
     peak = float(np.abs(y).max())
     check(peak <= ceiling + 1e-6, f"output peak {peak} above the ceiling {ceiling}")
-    per_block = {"biquad_cascade": 5, "max_affine_scan": 2, "compressor_scan": 1}
+    return peak
+
+
+def _check_per_block(counts: dict, per_block: dict, n_blocks: int, path: str) -> None:
     for name, k in per_block.items():
         check(counts[name] == k * n_blocks,
-              f"{name}: {counts[name]} launches, expected {k} per block")
-    print(f"[3] output finite, peak {peak:.4f} <= ceiling {ceiling:.4f}; "
-          f"gr limiter max {float(eng._last_metrics['limiter_gain_reduction_db'].max()):.2f} dB",
-          flush=True)
-    print(f"[3] seconds per block (info, {card}): step() {t_step:.4f}, "
-          f"step_many(10) {t_many:.4f}; audio-sec/sec at fleet {FLEET}: "
-          f"{FLEET * BLOCK / FS / t_step:.1f} (step), "
+              f"{path}: {name} {counts[name]} launches, expected {k} per block")
+
+
+def phase3_default(card: str) -> dict:
+    from audioforge_tpu_torch import kernels
+
+    n_blocks = 15
+    audio = speech_like(FLEET, n_blocks + 1, 11)
+    t0 = time.perf_counter()
+    eng, outs = _engine(FLEET, DEVICE, audio)
+    eng.step()  # warm-up: the first step pays the libraries' lazy set-up
+    torch.cuda.synchronize()
+    print(f"[3] engine at fleet {FLEET} built and warmed up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kernels.reset_launch_counts()
+    step_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    t_step = float(np.mean(step_s))
+    t0 = time.perf_counter()
+    eng.step_many(10)
+    torch.cuda.synchronize()
+    t_many = (time.perf_counter() - t0) / 10
+    counts = dict(kernels.launch_counts)
+    print(f"[3] default path, launches over {n_blocks} blocks: {counts}", flush=True)
+    peak = _check_output(outs, n_blocks + 1, FLEET)
+    _check_per_block(counts, {"biquad_cascade": 5, "max_affine_scan": 2,
+                              "compressor_scan": 1, "gate_scan": 1}, n_blocks,
+                     "default path")
+    print(f"[3] output finite, peak {peak:.4f} within the ceiling; seconds per block "
+          f"(info, {card}): step() mean {t_step:.4f} median {np.median(step_s):.4f} "
+          f"max {max(step_s):.4f}, step_many(10) {t_many:.4f}; "
+          f"audio-sec/sec at fleet {FLEET}: {FLEET * BLOCK / FS / t_step:.1f} (step), "
           f"{FLEET * BLOCK / FS / t_many:.1f} (step_many)", flush=True)
-    layer_split(eng, card)
+    layer_split(eng, card, "[3]")
     return counts
 
 
-def layer_split(eng, card: str) -> None:
+def phase4_full_chain(card: str) -> dict:
+    from audioforge_tpu_torch import kernels
+
+    audio = mic_capture(FLEET, FULL_BLOCKS, 16)
+    eng, outs = _engine(FLEET, DEVICE, audio, full_chain())
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(FULL_BLOCKS // 2 - 5):
+        eng.step_many(2)
+    torch.cuda.synchronize()
+    t_many = (time.perf_counter() - t0) / (FULL_BLOCKS - 10)
+    step_s = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        m = eng.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    t_step = float(np.mean(step_s))
+    counts = dict(kernels.launch_counts)
+    print(f"[4] full chain (strong cleanup + de-esser), launches over {FULL_BLOCKS} "
+          f"blocks: {counts}", flush=True)
+    _check_per_block(counts, {"biquad_cascade": 5, "max_affine_scan": 2,
+                              "compressor_scan": 1, "gate_scan": 1,
+                              "deesser_scan": 1, "cleanup_scan": 1}, FULL_BLOCKS,
+                     "full chain")
+    peak = _check_output(outs, FULL_BLOCKS, FLEET)
+    cls = np.arange(FLEET) % 4
+    hum = m["routing_hum_detected"].cpu().numpy()
+    red = m["deesser_gain_reduction_db"].cpu().numpy()
+    windows = eng._state["chain"]["routing"]["windows_observed"].cpu().numpy()
+    print(f"[4] hum detected on {hum[cls == 0].mean():.3f} of the 50.4 Hz streams, "
+          f"{hum[cls == 1].mean():.3f} of the 59.7 Hz streams, {hum[cls >= 2].mean():.3f} "
+          f"of the others; de-esser reduction > 0 on {(red[cls == 2] > 0).mean():.3f} of "
+          f"the sibilant streams (mean {red[cls == 2].mean():.2f} dB); windows "
+          f"observed {int(windows.min())}", flush=True)
+    check(bool(hum[cls == 0].all() and hum[cls == 1].all()),
+          "hum not detected on every hum stream")
+    check(bool((red[cls == 2] > 0).all()), "no de-esser reduction on a sibilant stream")
+    print(f"[4] output finite, peak {peak:.4f} within the ceiling; seconds per block "
+          f"(info, {card}): step() mean {t_step:.4f} median {np.median(step_s):.4f} "
+          f"max {max(step_s):.4f}, step_many(2) {t_many:.4f}; "
+          f"audio-sec/sec at fleet {FLEET}: {FLEET * BLOCK / FS / t_step:.1f} (step), "
+          f"{FLEET * BLOCK / FS / t_many:.1f} (step_many)", flush=True)
+    layer_split(eng, card, "[4]")
+    return counts
+
+
+def layer_split(eng, card: str, tag: str) -> None:
     """Seconds of one more step() by layer, with a device synchronise
     around each timed stage (information only)."""
-    from audioforge_tpu_torch.ops import gate as gate_ops
+    from audioforge_tpu_torch.ops import deesser, gate, routing
     from audioforge_tpu_torch.runtime import live_chain as lc
     from audioforge_tpu_torch.runtime import serving as sv
 
-    stages = [(lc, "front_block"), (gate_ops, "gate_process"),
-              (sv, "_supp_step"), (lc, "back_block")]
+    stages = [(lc, "front_block"), (routing, "routing_process"),
+              (gate, "gate_process"), (sv, "_supp_step"), (lc, "back_block"),
+              (deesser, "deesser_process")]
     seconds = {}
     originals = {(mod, name): getattr(mod, name) for mod, name in stages}
 
@@ -274,56 +581,113 @@ def layer_split(eng, card: str) -> None:
     for (mod, name), fn in originals.items():
         setattr(mod, name, timed(name, fn))
     try:
-        eng.push(0, np.zeros(BLOCK, np.float32))
+        for slot in range(eng.capacity):
+            eng.push(slot, np.zeros(BLOCK, np.float32))
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.step()
+        torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
         for (mod, name), fn in originals.items():
             setattr(mod, name, fn)
-    print(f"[3] one step() by layer (info, {card}): total {total:.4f} s; front "
-          f"{seconds['front_block']:.4f} (gate loop {seconds['gate_process']:.4f}), "
-          f"rnnoise {seconds['_supp_step']:.4f}, back {seconds['back_block']:.4f}",
-          flush=True)
+    g = lambda k: seconds.get(k, 0.0)
+    print(f"{tag} one step() by layer (info, {card}): total {total:.4f} s; front "
+          f"{g('front_block'):.4f} (routing {g('routing_process'):.4f}, gate "
+          f"{g('gate_process'):.4f}), rnnoise {g('_supp_step'):.4f}, back "
+          f"{g('back_block'):.4f} (de-esser {g('deesser_process'):.4f})", flush=True)
 
 
-def phase4_card_vs_cpu() -> None:
-    n, n_blocks = 4, 10
-    audio = speech_like(n, n_blocks, 12)
-    ys, periods = {}, {}
-    for device in (DEVICE, "cpu"):
-        eng, outs = _engine(n, device, audio)
-        eng.step_many(n_blocks)
-        ys[device] = np.stack([np.concatenate(o) for o in outs])
-        periods[device] = eng._state["supp"]["model"]["last_period"].cpu().numpy()
-    rms = float(np.sqrt(np.mean((ys[DEVICE].astype(np.float64) - ys["cpu"]) ** 2)))
-    print(f"[4] card vs CPU over {n_blocks} blocks x {n} streams: RMS diff "
-          f"{rms:.3e} (tol 1e-3), max {np.abs(ys[DEVICE] - ys['cpu']).max():.3e}; "
-          f"last_period card {periods[DEVICE].tolist()} cpu "
-          f"{periods['cpu'].tolist()}", flush=True)
-    check(rms <= 1e-3, "card and CPU outputs differ")
-    check(bool((periods[DEVICE] == periods["cpu"]).all()), "pitch periods differ")
+def phase5_card_vs_cpu() -> None:
+    n = 4
+    for name, chain, n_blocks, audio in (
+            ("default path", None, 10, speech_like(n, 10, 12)),
+            ("full chain", full_chain(), 27, mic_capture(n, 27, 17))):
+        ys, periods, hum = {}, {}, {}
+        for device in (DEVICE, "cpu"):
+            eng, outs = _engine(n, device, audio, chain)
+            m = eng.step_many(n_blocks)
+            ys[device] = np.stack([np.concatenate(o) for o in outs])
+            periods[device] = eng._state["supp"]["model"]["last_period"].cpu().numpy()
+            hum[device] = (m["routing_hum_line_hz"].cpu().numpy(),
+                           m["routing_rumble_detected"].cpu().numpy())
+        diff = ys[DEVICE].astype(np.float64) - ys["cpu"]
+        rms = float(np.sqrt(np.mean(diff ** 2)))
+        print(f"[5] card vs CPU, {name}, {n_blocks} blocks x {n} streams: RMS diff "
+              f"{rms:.3e} (tol 1e-3), max {np.abs(diff).max():.3e}; last_period card "
+              f"{periods[DEVICE].tolist()} cpu {periods['cpu'].tolist()}; hum line card "
+              f"{hum[DEVICE][0].tolist()} cpu {hum['cpu'][0].tolist()}", flush=True)
+        check(rms <= 1e-3, f"card and CPU outputs differ ({name})")
+        check(bool((periods[DEVICE] == periods["cpu"]).all()), "pitch periods differ")
+        check(bool(np.allclose(hum[DEVICE][0], hum["cpu"][0], atol=1e-3)
+                   and (hum[DEVICE][1] == hum["cpu"][1]).all()),
+              f"hum line or rumble flags differ ({name})")
+
+
+SOURCES = {
+    "env_scan": ("audioforge_tpu_torch/csrc/env_scan.cu",
+                 "tools/evaluate_scan_kernel_strategy.py:72"),
+    "max_affine_scan": ("audioforge_tpu_torch/csrc/max_affine_scan.cu",
+                        "audioforge_tpu/ops/scan.py:305"),
+    "biquad_cascade": ("audioforge_tpu_torch/csrc/biquad_cascade.cu",
+                       "audioforge_tpu/ops/biquad.py:346"),
+    "compressor_scan": ("audioforge_tpu_torch/csrc/compressor_scan.cu",
+                        "audioforge_tpu/ops/compressor.py:277"),
+    "gate_scan": ("audioforge_tpu_torch/csrc/gate_scan.cu",
+                  "audioforge_tpu/ops/gate.py:233"),
+    "deesser_scan": ("audioforge_tpu_torch/csrc/deesser_scan.cu",
+                     "audioforge_tpu/ops/deesser.py:199"),
+    "cleanup_scan": ("audioforge_tpu_torch/csrc/cleanup_scan.cu",
+                     "audioforge_tpu/ops/routing.py:476"),
+}
+
+
+def phase6_profile(card: str) -> None:
+    """CUDA kernels per ``step()`` and the card's busy share over 3 steps at
+    fleet 1024, default path and full chain, from a ``torch.profiler`` trace
+    (kernel rows only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, chain, audio in (("default path", None, speech_like(FLEET, 6, 21)),
+                               ("full chain", full_chain(), mic_capture(FLEET, 6, 22))):
+        eng, _ = _engine(FLEET, DEVICE, audio, chain)
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        launches = sum(e.count for e in rows) / 3
+        busy_s = sum(e.self_device_time_total for e in rows) / 1e6
+        print(f"[6] {name} ({card}): {launches:.0f} CUDA kernels per step(); kernel "
+              f"time {busy_s / 3 * 1e3:.2f} ms of {wall / 3 * 1e3:.2f} ms per profiled "
+              f"step, busy share {busy_s / wall:.3f}", flush=True)
+        for e in rows[:8]:
+            print(f"    {e.self_device_time_total / 3e3:8.3f} ms/step {e.count // 3:6d}x  "
+                  f"{e.key[:90]}")
 
 
 def main() -> int:
     card = phase0_device()
     phase1_build()
-    measured = phase2_kernels(card)
-    counts = phase3_slice(card)
-    phase4_card_vs_cpu()
-    sources = {
-        "env_scan": ("audioforge_tpu_torch/csrc/env_scan.cu",
-                     "tools/evaluate_scan_kernel_strategy.py:72"),
-        "max_affine_scan": ("audioforge_tpu_torch/csrc/max_affine_scan.cu",
-                            "audioforge_tpu/ops/scan.py:305"),
-        "biquad_cascade": ("audioforge_tpu_torch/csrc/biquad_cascade.cu",
-                           "audioforge_tpu/ops/biquad.py:346"),
-        "compressor_scan": ("audioforge_tpu_torch/csrc/compressor_scan.cu",
-                            "audioforge_tpu/ops/compressor.py:277"),
-    }
+    res = Results(card)
+    phase2_pr1_kernels(res)
+    phase2_gate(res)
+    phase2_deesser(res)
+    phase2_cleanup(res)
+    phase3_default(card)
+    counts = phase4_full_chain(card)
+    phase5_card_vs_cpu()
+    phase6_profile(card)
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-              "launches": counts[name], **measured[name]}
-             for name, (src, rep) in sources.items()]
+              "launches": counts[name], **res.rows[name]}
+             for name, (src, rep) in SOURCES.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,8 @@ import torch
 
 from audioforge_tpu_torch import kernels
 from audioforge_tpu_torch.__main__ import main as cli_main
-from audioforge_tpu_torch.ops import biquad, compressor, envelope, scan
+from audioforge_tpu_torch.ops import biquad, compressor, deesser, envelope, gate
+from audioforge_tpu_torch.ops import routing, scan
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -51,6 +52,50 @@ def test_wrappers_refuse_devices_they_cannot_launch_on():
     cfg = compressor.CompressorConfig()
     with pytest.raises(ValueError, match="unsupported device"):
         compressor.compressor_scan(cfg, {}, torch.empty(2, **meta), {}, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gate.gate_process(gate.GateConfig(), {}, x, None, None, None, None, {})
+    with pytest.raises(ValueError, match="unsupported device"):
+        deesser.deesser_scan(deesser.DeEsserConfig(enabled=True), {}, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        routing.cleanup_scan(routing.RoutingConfig(cleanup_mode=2), {}, {}, x)
+
+
+def _launcher(kernel, n):
+    """A call of ``kernel``'s launch path on CPU tensors for ``n`` streams,
+    taking the block ``x``; it must raise in the layout checks before it
+    reaches the (absent) library."""
+    if kernel == "gate_scan":
+        cfg = gate.GateConfig(mode=gate.VAD_ASSISTED)
+        st = gate.gate_init(n=n, device="cpu")
+        p = {k: torch.zeros(n) for k in gate.PARAM_KEYS}
+        z = torch.zeros(n)
+        return lambda x: gate._gate_scan(cfg, st, x, z, z.bool(), z.bool(), z, p)
+    if kernel == "deesser_scan":
+        cfg = deesser.DeEsserConfig(enabled=True)
+        st = deesser.deesser_init(cfg, n=n, device="cpu")
+        return lambda x: deesser._deesser_launch(cfg, st, x)
+    cfg = routing.RoutingConfig(cleanup_mode=routing.CLEANUP_STRONG)
+    st = routing.routing_init(cfg, n=n, device="cpu")
+    zi = torch.zeros(n, dtype=torch.int32)
+    ctx = dict.fromkeys(("boundary", "hold0", "hold_after", "cand0", "cand_new",
+                         "wobs0", "wobs_new"), zi)
+    return lambda x: routing._cleanup_launch(cfg, st, ctx, x)
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity"])
+@pytest.mark.parametrize("kernel", ["gate_scan", "deesser_scan", "cleanup_scan"])
+def test_new_kernels_reject_layouts_they_do_not_take(kernel, fault):
+    n, T = 3, 16
+    x = torch.zeros((n, T))
+    if fault == "dtype":
+        call, x = _launcher(kernel, n), x.double()
+    elif fault == "shape":  # a state of one stream more than the block
+        call = _launcher(kernel, n + 1)
+    else:
+        call, x = _launcher(kernel, n), torch.zeros((T, n)).t()
+    with pytest.raises(ValueError, match={"dtype": "dtype", "shape": "shape",
+                                          "contiguity": "contiguous"}[fault]):
+        call(x)
 
 
 def test_check_tensor_rejects_layouts_the_kernels_do_not_take():
@@ -76,7 +121,7 @@ def test_serve_cli_processes_a_wav_on_cpu(tmp_path, capsys):
         handle.writeframes(pcm.tobytes())
     out_dir = tmp_path / "out"
     assert cli_main(["serve", str(src), "--output-dir", str(out_dir),
-                     "--device", "cpu"]) == 0
+                     "--device", "cpu", "--deesser"]) == 0
     with wave.open(str(out_dir / "voice.processed.wav"), "rb") as handle:
         assert handle.getnframes() == n
         y = np.frombuffer(handle.readframes(n), "<i2")
