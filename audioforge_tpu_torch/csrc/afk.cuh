@@ -1,14 +1,16 @@
 // Shared definitions for the hand-written CUDA kernels of audioforge_tpu_torch.
 //
-// Every kernel keeps its per-stream sample loop in an AFK_HD function so the
-// arithmetic is one piece of code; the __global__ wrapper and the extern "C"
-// launcher sit under __CUDACC__. The launchers take raw device pointers and a
-// cudaStream_t (PyTorch's current stream), allocate nothing, and return
+// Every kernel keeps its per-stream (or per-lane) sample step in AFK_HD
+// functions so the arithmetic is one piece of code that a host C++ build can
+// also run; the __global__ wrapper and the extern "C" launcher sit under
+// __CUDACC__. The launchers take raw device pointers and a cudaStream_t
+// (PyTorch's current stream), allocate nothing, and return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 #pragma once
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+#include <cstdint>
 #define AFK_HD __host__ __device__ __forceinline__
 #else
 #include <cmath>
@@ -22,6 +24,7 @@
 constexpr int AFK_THREADS = 64;
 
 AFK_HD int afk_imax(int a, int b) { return a > b ? a : b; }
+AFK_HD int afk_imin(int a, int b) { return a < b ? a : b; }
 
 // jnp.clip(v, lo, hi) == minimum(maximum(v, lo), hi)
 AFK_HD float afk_clip(float v, float lo, float hi) {
@@ -33,6 +36,102 @@ AFK_HD float afk_linear_to_db(float v, float floor_db) {
     return fmaxf(20.0f * log10f(fmaxf(fabsf(v), 1e-10f)), floor_db);
 }
 
+// ---------------------------------------------------------------------------
+// Shared-memory tiles of [N, T] stream-major blocks.
+//
+// A block stages the rows of its streams, one chunk of samples at a time, in
+// dynamic shared memory: `rows` rows of `tc` floats at a row stride of
+// afk_tile_stride(tc) words. The stride is a multiple of 4 (16-byte rows for
+// cp.async and float4 reads) and 4 mod 32, so eight lanes reading a float4 at
+// one sample index of eight rows, or 32 lanes reading one word of eight rows,
+// hit distinct banks.
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory a tiled kernel may take (set with
+// cudaFuncSetAttribute above the 48 KB default).
+constexpr int AFK_TILE_SMEM_BYTES = 64 * 1024;
+
+AFK_HD int afk_tile_stride(int tc) {
+    const int r4 = (tc + 3) & ~3;
+    return r4 + ((4 - (r4 & 31)) & 31);
+}
+
+// Longest chunk of a T-sample block whose tile of `rows` rows fits in
+// `budget` bytes: a multiple of 4 (chunk starts stay 16-byte aligned), at
+// most T.
+AFK_HD int afk_tile_chunk(int T, int rows, int budget) {
+    const int cap = budget / (4 * rows);  // words per row
+    return afk_imin(T, (cap - 28) & ~3);
+}
+
 #ifdef __CUDACC__
 inline int afk_blocks(int n) { return (n + AFK_THREADS - 1) / AFK_THREADS; }
+
+// Raise `kernel`'s dynamic shared-memory limit where `bytes` needs it.
+// `allowed` (a static of the caller, one per kernel) remembers what was set,
+// so later launches, also those inside CUDA graph capture, make no
+// cudaFuncSetAttribute call.
+template <typename Kernel>
+inline int afk_allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
+    if (bytes <= 48 * 1024 || bytes <= allowed) return 0;
+    const int err = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+    if (err == 0) allowed = bytes;
+    return err;
+}
+
+__device__ __forceinline__ void afk_cp_async16(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void afk_cp_async4(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+// Rows and chunk starts of `base` are 16-byte aligned: T is a multiple of 4
+// and the pointer is.
+__device__ __forceinline__ bool afk_rows_aligned(const float* base, int T) {
+    return (T & 3) == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+}
+
+// Copy samples [c0, c0 + tc) of `rows` consecutive streams (row r at
+// src + r * T) into the tile, coalesced: neighbouring threads take
+// neighbouring 16-byte pieces of a row (4-byte pieces where rows are not
+// 16-byte aligned). Ends with the copy complete and visible to the block.
+__device__ __forceinline__ void afk_tile_load(float* tile, int stride, const float* src,
+                                              int rows, int T, int c0, int tc) {
+    if (afk_rows_aligned(src, T)) {
+        for (int r = 0; r < rows; ++r)
+            for (int j = 4 * threadIdx.x; j < tc; j += 4 * blockDim.x)
+                afk_cp_async16(tile + r * stride + j, src + (long long)r * T + c0 + j);
+    } else {
+        for (int r = 0; r < rows; ++r)
+            for (int j = threadIdx.x; j < tc; j += blockDim.x)
+                afk_cp_async4(tile + r * stride + j, src + (long long)r * T + c0 + j);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+}
+
+// Write the tile back over samples [c0, c0 + tc) of `rows` streams of dst,
+// coalesced like afk_tile_load. Starts and ends with a block barrier, so the
+// tile is complete before and free for reuse after.
+__device__ __forceinline__ void afk_tile_store(const float* tile, int stride, float* dst,
+                                               int rows, int T, int c0, int tc) {
+    __syncthreads();
+    if (afk_rows_aligned(dst, T)) {
+        for (int r = 0; r < rows; ++r)
+            for (int j = 4 * threadIdx.x; j < tc; j += 4 * blockDim.x)
+                *reinterpret_cast<float4*>(dst + (long long)r * T + c0 + j) =
+                    *reinterpret_cast<const float4*>(tile + r * stride + j);
+    } else {
+        for (int r = 0; r < rows; ++r)
+            for (int j = threadIdx.x; j < tc; j += blockDim.x)
+                dst[(long long)r * T + c0 + j] = tile[r * stride + j];
+    }
+    __syncthreads();
+}
 #endif

@@ -5,8 +5,9 @@ the same (RBJ cookbook coefficients designed in f64 on the host and stored as
 f32; Direct Form II Transposed; live edits crossfade over 1.5 ms between an
 active and a pending lane, then promote the pending lane), but where the TPU
 ran one blocked associative scan per section in double-word f32, the GPU runs
-every section of a cascade per sample in one hand-written kernel with native
-f64 state (``csrc/biquad_cascade.cu``).
+every section of a cascade in one hand-written kernel with native f64 state
+(``csrc/biquad_cascade.cu``: one lane per section, the sections of a stream
+as a wavefront over the block staged in shared memory).
 
 Unit state (stream axis first)::
 

@@ -8,9 +8,11 @@ total reduction rescaled to ``max_reduction_db`` and applied as three
 dynamic peaking biquads whose gain follows the band reduction per sample.
 
 The TPU split this into three phases only to get parallel scans (detector
-biquads, the 13-state envelope scan, time-varying biquads). Here the three
-run sample by sample in one pass: the hand-written ``deesser_scan`` kernel
-(``csrc/deesser_scan.cu``, one thread per stream) on the card and
+biquads, the 13-state envelope scan, time-varying biquads). Here they run
+sample by sample in one launch: the hand-written ``deesser_scan`` kernel
+(``csrc/deesser_scan.cu``: the block staged in shared memory, the
+recurrences one lane per band, the per-sample math of every sample spread
+over the block's warps, the dynamic bands as a wavefront) on the card and
 :func:`deesser_scan_plain` on the CPU. Filter and envelope state is f32, as
 in the reference.
 
@@ -37,6 +39,7 @@ __all__ = [
     "BAND_COUNT", "DeEsserConfig", "deesser_init",
     "deesser_process", "deesser_scan", "deesser_scan_plain",
     "dynamic_band_constants", "dynamic_peaking_coeffs", "SCAN_STATE_KEYS",
+    "pack_scan_state", "unpack_scan_state",
 ]
 
 VOICE_REFERENCE_SIDECHAIN_DISCOUNT = 0.6
@@ -307,11 +310,24 @@ def deesser_scan(config: DeEsserConfig, state, x):
     return _deesser_launch(config, state, x)
 
 
+def pack_scan_state(state) -> torch.Tensor:
+    """The kernel's key-major state ``f32 [33, N]`` (``SCAN_STATE_KEYS``
+    rows) from the state dict."""
+    return torch.cat([state[key].reshape(-1, w) for key, w in SCAN_STATE_KEYS],
+                     dim=1).t().contiguous()
+
+
+def unpack_scan_state(rows: torch.Tensor, like) -> dict:
+    """The state dict, shaped like ``like``, from ``f32 [33, N]`` rows."""
+    parts = rows.t().split([w for _, w in SCAN_STATE_KEYS], dim=1)
+    return {key: r.reshape(like[key].shape)
+            for (key, _), r in zip(SCAN_STATE_KEYS, parts)}
+
+
 def _deesser_launch(config: DeEsserConfig, state, x):
     n, T = x.shape
     dev = x.device
-    s_in = torch.cat([state[key].reshape(-1, w) for key, w in SCAN_STATE_KEYS],
-                     dim=1).t().contiguous()
+    s_in = pack_scan_state(state)
     kernels.check_tensor("deesser_scan x", x, torch.float32, (n, T), dev)
     kernels.check_tensor("deesser_scan state", s_in, torch.float32,
                          (_STATE_ROWS, n), dev)
@@ -321,10 +337,7 @@ def _deesser_launch(config: DeEsserConfig, state, x):
     kernels.launch("deesser_scan", x.data_ptr(), s_in.data_ptr(), y.data_ptr(),
                    s_out.data_ptr(), n, T, consts.ctypes.data, consts.size,
                    int(config.auto_enabled), kernels.stream_of(dev))
-    rows = s_out.t().split([w for _, w in SCAN_STATE_KEYS], dim=1)
-    new_state = {key: r.reshape(state[key].shape)
-                 for (key, _), r in zip(SCAN_STATE_KEYS, rows)}
-    return new_state, y
+    return unpack_scan_state(s_out, state), y
 
 
 def deesser_process(config: DeEsserConfig, state, x):

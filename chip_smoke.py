@@ -5,11 +5,18 @@ of which stops the script with a non-zero exit when it fails:
 
 0. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device is a failure (there is no CPU path);
-1. build: compiles the CUDA kernels under audioforge_tpu_torch/csrc/;
+1. build: compiles the CUDA kernels under audioforge_tpu_torch/csrc/ and
+   prints ptxas's registers and spills; a spill in biquad_cascade or
+   deesser_scan fails;
 2. kernels: each kernel against its plain PyTorch twin on the card, at the
-   shapes the serving path gives it, with both times from CUDA events and
-   the least time the card could take (bytes over 3.35 TB/s or operations
-   over the f32/f64 peak, whichever is larger);
+   shapes the serving path gives it, with its time on the card (a CUDA
+   graph of the wrapper call, replayed), the eager call's and the plain
+   twin's times (CUDA events) and the least time the card could take (bytes
+   over 3.35 TB/s or operations over the f32/f64 peak, whichever is
+   larger); biquad_cascade at 1, 2, 10 and 17 sections (crossfades in
+   flight and idle), with its time per block weighted by the launches of
+   each section count, and checked at 1 and 10 sections on blocks long
+   enough that the kernel runs them in several shared-memory chunks;
 3. default path: the serving engine at fleet 1024 (RNNoise + default live
    chain) through one warm-up step, then 5 x step() and step_many(10) with
    the launch counts read over those 15 blocks: finite output within the
@@ -27,8 +34,10 @@ of which stops the script with a non-zero exit when it fails:
    kernels that take the most time.
 
 The line before the last is a JSON object with every kernel's launches on
-the full-chain run, error against its twin, times and bound; the last line
-is ``{"ok": true, "device": {...}}``.
+the full-chain run, error against its twin (the worst over its
+configurations), times and bound (of its first configuration); the last
+line is ``{"ok": true, "device": {...}}``. compare_kernels.py times the
+kernels of two checkouts on phase [2]'s inputs (:func:`timed_calls`).
 """
 
 from __future__ import annotations
@@ -49,6 +58,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 FP64_OPS_PER_S = 34e12      # H100 SXM f64 outside the tensor cores
 FULL_BLOCKS = 60            # hum windows (250 ms) complete at blocks 25 and 50
+ENV_BLOCKS = 50             # env_scan blocks per run (the tool's 50 blocks)
+GATE_BLOCKS = 30            # gate_scan blocks per mode
+# kernels whose lane state must fit in registers (phase [1] fails on a spill)
+NO_SPILL_KERNELS = ("biquad_cascade_kernel", "deesser_scan_kernel")
 
 
 def fail(msg: str) -> None:
@@ -73,6 +86,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_times(fn, reps: int = 20):
+    """``(device_ms, call_ms)`` per call of ``fn``: its time on the card,
+    from CUDA events around the replay of a CUDA graph of ``reps`` calls (the
+    kernel and the wrapper's own few tensor ops, without the host's cost of
+    launching them), and the eager call's time from CUDA events (``reps``
+    calls back to back, so it includes that cost where the kernel is
+    shorter)."""
+    call_ms = cuda_ms(fn, reps)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 3) / reps, call_ms
 
 
 def bound(bytes_moved: float, f32_ops: float = 0.0, f64_ops: float = 0.0):
@@ -146,32 +174,42 @@ def phase1_build():
     kernels.library()
     print(f"[1] build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}", flush=True)
     log = lib_path.with_suffix(".log")
-    if log.is_file():
-        for line in log.read_text().splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print(f"    ptxas: {line.strip()}")
+    entry, spills = "", []
+    for line in log.read_text().splitlines() if log.is_file() else ():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(f"    ptxas: {line.strip()}")
+        if ("spill stores" in line and any(k in entry for k in NO_SPILL_KERNELS)
+                and "0 bytes spill stores, 0 bytes spill loads" not in line):
+            spills.append(f"{entry}: {line.strip()}")
+    check(not spills, f"ptxas reports spills: {spills}")
 
 
 class Results:
     """Per-kernel numbers for the JSON line; a kernel checked in several
-    configurations keeps its worst error and the times of that one."""
+    configurations keeps its worst error over all of them and the times and
+    bound of the first one reported (the main path's headline shape)."""
 
     def __init__(self, card: str):
         self.card = card
         self.rows = {}
 
-    def report(self, name, err, tol, ms, plain_ms, shape, bytes_moved,
-               f32_ops=0.0, f64_ops=0.0):
+    def report(self, name, err, tol, times, plain_ms, shape, bytes_moved,
+               f32_ops=0.0, f64_ops=0.0) -> float:
+        """Print and check one configuration (``times`` from
+        :func:`kernel_times`); returns its bound in ms."""
+        ms, call_ms = times
         bound_ms, bound_by = bound(bytes_moved, f32_ops, f64_ops)
         print(f"[2] {name} {shape}: max_abs_err {err:.3e} (tol {tol:g}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}) ({self.card})", flush=True)
+              f"{ms:.4f} ms on the card (call {call_ms:.4f} ms), plain {plain_ms:.3f} "
+              f"ms, bound {bound_ms:.5f} ms ({bound_by}) ({self.card})", flush=True)
         check(np.isfinite(err) and err <= tol, f"{name} disagrees with its plain twin")
-        prev = self.rows.get(name)
-        if prev is None or err > prev["max_abs_err"]:
-            self.rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by,
-                               "library_ms": None}
+        row = self.rows.setdefault(name, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        return bound_ms
 
 
 def _max_err(a: dict, b: dict) -> float:
@@ -185,116 +223,251 @@ def _max_err(a: dict, b: dict) -> float:
     return worst
 
 
-def phase2_pr1_kernels(res: Results) -> None:
-    from audioforge_tpu_torch.ops import biquad, eq, envelope, scan
-    from audioforge_tpu_torch.ops import compressor as comp
+def _idle_odd_streams(st: dict) -> dict:
+    """A unit state whose crossfades stay in flight on the even streams and
+    are idle (identical lanes, no fade) on the odd ones."""
+    st = {k: v.clone() for k, v in st.items()}
+    odd = torch.arange(st["z"].shape[0], device=st["z"].device) % 2 == 1
+    st["coeffs"][odd, :, 1] = st["coeffs"][odd, :, 0]
+    st["z"][odd, :, 1] = st["z"][odd, :, 0]
+    st["fade_total"][odd] = 0
+    st["fade_remaining"][odd] = 0
+    return st
+
+
+def biquad_inputs():
+    """``(x, shapes)``: a block of ``[FLEET, BLOCK]`` and ``(name, sections,
+    unit state)`` for every section count the serving path launches
+    biquad_cascade with (1: RNNoise's input high-pass and cleanup's owned
+    high-pass; 2: the two K-weighting meters and the DC blocker + 80 Hz
+    pair; 10: the EQ, idle and with a band edit's crossfade) and 17, which
+    the wrapper splits into two launches. The crossfades of 1.5 ms start at
+    the block's first sample, so they end mid-block, on the even streams and
+    are idle on the odd ones."""
+    from audioforge_tpu_torch.ops import biquad, eq, loudness, routing
 
     dev = torch.device(DEVICE)
-    rng = np.random.default_rng(7)
-    n_elem = FLEET * BLOCK
+    rng = np.random.default_rng(8)
+    x = torch.tensor(speech_like(FLEET, 2, 8), device=dev)
+    x0, xb = x[:, :BLOCK].contiguous(), x[:, BLOCK:].contiguous()
+    fade = biquad.crossfade_samples(FS)
 
-    # env_scan at the tool's shapes: [480, 2048] time-major, 50 blocks
-    R, B = 50, 2048
-    xs = torch.tensor(rng.standard_normal((R, BLOCK, B)).astype(np.float32), device=dev)
-    env0 = torch.zeros(B, device=dev)
-
-    def env_run(fn):
-        env, ys = env0, []
-        for r in range(R):
-            y, env = fn(xs[r], env)
-            ys.append(y)
-        return torch.stack(ys), env
-
-    yk, ek = env_run(envelope.env_scan)
-    yp, ep = env_run(envelope.env_scan_plain)
-    err = max((yk - yp).abs().max().item(), (ek - ep).abs().max().item())
-    ms = cuda_ms(lambda: env_run(envelope.env_scan), 3) / R
-    plain_ms = cuda_ms(lambda: env_run(envelope.env_scan_plain), 1) / R
-    # per element: abs, compare/select, 4 for the one-pole, max, log
-    res.report("env_scan", err, 1e-5, ms, plain_ms, f"[{BLOCK}, {B}] x {R} blocks",
-               8 * BLOCK * B, f32_ops=8 * BLOCK * B)
-
-    # max_affine_scan as the lookahead limiter drives it, [1024, 480]
-    target = torch.tensor(rng.uniform(0.5, 1.0, (FLEET, BLOCK)).astype(np.float32),
-                          device=dev)
-    target = torch.where(target > 0.8, torch.ones_like(target), target)
-    v = (1.0 - target).contiguous()
-    rho = torch.full((FLEET,), float(np.exp(-1.0 / (0.05 * FS))), device=dev)
-    c = ((1.0 - rho)[:, None] * v).contiguous()
-    u0 = torch.rand(FLEET, device=dev)
-    err = (scan.max_affine_scan(v, rho, c, u0)
-           - scan.max_affine_scan_plain(v, rho, c, u0)).abs().max().item()
-    ms = cuda_ms(lambda: scan.max_affine_scan(v, rho, c, u0), 50)
-    plain_ms = cuda_ms(lambda: scan.max_affine_scan_plain(v, rho, c, u0), 2)
-    res.report("max_affine_scan", err, 1e-5, ms, plain_ms, f"[{FLEET}, {BLOCK}]",
-               12 * n_elem, f32_ops=3 * n_elem)
-
-    # biquad_cascade: the EQ with the bench gains and a crossfade in flight
     gains = [-2.5, 1.5, -1.0, 2.0, 3.0, 2.5, 1.5, -2.0, 1.0, -1.5]
     bands = [eq.EqBandConfig(b.filter_type, b.frequency_hz, g, 4.33, 12, True)
              for b, g in zip(eq.default_bands(), gains)]
-    st = eq.eq_init(bands, FS, n=FLEET, device=dev)
-    x = torch.tensor(speech_like(FLEET, 2, 8), device=dev)
-    st, _ = eq.eq_process(st, x[:, :BLOCK].contiguous())
-    st = eq.eq_set_band(st, 4, eq.EqBandConfig(1, 1500.0, -6.0, 2.0), FS)
-    xb = x[:, BLOCK:].contiguous()
-    args = (xb, st["coeffs"].contiguous(), st["z"].contiguous(),
-            st["fade_total"].contiguous(), st["fade_remaining"].contiguous())
-    yk, zk = biquad.biquad_cascade(*args)
-    yp, zp = biquad.biquad_cascade_plain(*args)
-    err = max((yk - yp).abs().max().item(), (zk - zp).abs().max().item())
-    ms = cuda_ms(lambda: biquad.biquad_cascade(*args), 50)
-    plain_ms = cuda_ms(lambda: biquad.biquad_cascade_plain(*args), 1)
-    sections = st["z"].shape[1]
-    fading = int((st["fade_remaining"] > 0).sum().item())
-    # per section and sample 9 f64 ops on lane 0; a fading section adds
-    # lane 1 and the blend (9 + 6)
-    f64_ops = BLOCK * (9 * FLEET * sections + 15 * fading)
-    res.report("biquad_cascade", err, 1e-6, ms, plain_ms,
-               f"[{FLEET}, {BLOCK}] x {sections} sections, crossfade in flight",
-               8 * n_elem + FLEET * sections * (40 + 64 + 8), f64_ops=f64_ops)
+    eq_idle, _ = eq.eq_process(eq.eq_init(bands, FS, n=FLEET, device=dev), x0)
+    eq_st = eq.eq_set_band(eq_idle, 4, eq.EqBandConfig(1, 1500.0, -6.0, 2.0), FS)
 
-    # compressor_scan, both flag sets of the serving chain's options
-    xc = torch.tensor(speech_like(FLEET, 1, 9), device=dev)
+    freqs = np.geomspace(60.0, 14000.0, 17)
+    design = lambda g: biquad.design(biquad.PEAKING, freqs, g, 2.0, FS)
+    long_st, _ = biquad.unit_process(
+        biquad.unit_init(design(rng.uniform(-3, 3, 17)), FLEET, dev), x0)
+    long_st = biquad.unit_schedule(long_st, design(rng.uniform(-3, 3, 17)), fade)
+
+    def fixed(coeffs):
+        st = biquad.unit_init(np.asarray(coeffs, np.float32), FLEET, dev)
+        st["z"] = torch.tensor(1e-3 * rng.standard_normal(st["z"].shape), device=dev)
+        st["z"][:, :, 1] = st["z"][:, :, 0]
+        return st
+
+    return xb, (
+        ("eq", 10, _idle_odd_streams(eq_st)),
+        ("eq idle", 10, eq_idle),
+        ("hp", 1, fixed([routing._hp_coeffs(routing.PREFILTER_HZ, FS)])),
+        ("k-weighting", 2, fixed(loudness.k_weighting_coefficients(FS))),
+        ("split", 17, _idle_odd_streams(long_st)),
+    )
+
+
+def _cascade_args(x, st):
+    return (x, *(st[k].contiguous() for k in ("coeffs", "z", "fade_total", "fade_remaining")))
+
+
+def biquad_chunk_inputs():
+    """``(sections, T, args)`` at 1 and 10 sections on blocks of 960 and 2100
+    samples: the kernel's 64 KB tile holds 484 samples of 32 streams (P <= 2
+    lanes) or 2020 of 8 streams (P = 16), so both run in two chunks. The
+    even streams have crossfades of the longest length a unit schedules,
+    with their remaining counts spread over it, so that they end in either
+    chunk or after the block; the odd streams are idle."""
+    from audioforge_tpu_torch.ops import biquad
+
+    _, shapes = biquad_inputs()
+    st = next(st for name, _, st in shapes if name == "split")
+    x = torch.tensor(speech_like(FLEET, 5, 18), device=DEVICE)
+    rng = np.random.default_rng(19)
+    out = []
+    for sections, T in ((1, 960), (10, 2100)):
+        cut = {k: v[:, :sections].contiguous() for k, v in st.items()}
+        even = cut["fade_remaining"] > 0
+        total = biquad.MAX_COEFF_CROSSFADE_SAMPLES
+        left = torch.tensor(rng.integers(1, total + 1, even.shape), dtype=torch.int32,
+                            device=DEVICE)
+        cut["fade_total"] = torch.where(even, total, 0).to(torch.int32)
+        cut["fade_remaining"] = torch.where(even, left, 0).to(torch.int32)
+        out.append((sections, T, _cascade_args(x[:, :T].contiguous(), cut)))
+    return out
+
+
+def phase2_biquad(res: Results) -> None:
+    """biquad_cascade on :func:`biquad_inputs`, and its time per block
+    weighted by the launches of each section count; then checked on
+    :func:`biquad_chunk_inputs`."""
+    from audioforge_tpu_torch.ops import biquad
+
+    xb, shapes = biquad_inputs()
+    n_elem = FLEET * BLOCK
+    device, bounds = {}, {}
+    for name, sections, st in shapes:
+        args = _cascade_args(xb, st)
+        yk, zk = biquad.biquad_cascade(*args)
+        yp, zp = biquad.biquad_cascade_plain(*args)
+        err = max((yk - yp).abs().max().item(), (zk - zp).abs().max().item())
+        times = kernel_times(lambda: biquad.biquad_cascade(*args))
+        plain_ms = cuda_ms(lambda: biquad.biquad_cascade_plain(*args), 1)
+        fading = int((st["fade_remaining"] > 0).sum().item())
+        ending = int(((st["fade_remaining"] > 0)
+                      & (st["fade_remaining"] < BLOCK)).any(dim=1).sum().item())
+        # per section and sample 9 f64 ops on lane 0; a fading section adds
+        # lane 1 and the blend (9 + 6)
+        f64_ops = BLOCK * (9 * FLEET * sections + 15 * fading)
+        flight = (f", crossfade ending mid-block on {ending} streams, idle on "
+                  f"{FLEET - ending}" if fading else ", idle")
+        bounds[name] = res.report(
+            "biquad_cascade", err, 1e-6, times, plain_ms,
+            f"[{FLEET}, {BLOCK}] x {sections} sections{flight}",
+            8 * n_elem + FLEET * sections * (40 + 64 + 8), f64_ops=f64_ops)
+        device[name] = times[0]
+    # launches per block: the EQ (10 sections), RNNoise's high-pass and on the
+    # full chain cleanup's owned high-pass (1), both meters' K-weighting and
+    # on the default path the DC blocker + 80 Hz pair (2)
+    for eq_name, state in (("eq idle", "idle"), ("eq", "crossfading")):
+        full = device[eq_name] + 2 * device["hp"] + 2 * device["k-weighting"]
+        bound_full = bounds[eq_name] + 2 * bounds["hp"] + 2 * bounds["k-weighting"]
+        default = device[eq_name] + device["hp"] + 3 * device["k-weighting"]
+        print(f"[2] biquad_cascade per block with the EQ {state}: full chain (10 + 2 x 1 "
+              f"+ 2 x 2 sections) {full:.4f} ms, bound {bound_full:.5f} ms; default "
+              f"path (10 + 1 + 3 x 2) {default:.4f} ms ({res.card})", flush=True)
+    row = res.rows["biquad_cascade"]
+    for sections, T, args in biquad_chunk_inputs():
+        yk, zk = biquad.biquad_cascade(*args)
+        yp, zp = biquad.biquad_cascade_plain(*args)
+        err = max((yk - yp).abs().max().item(), (zk - zp).abs().max().item())
+        ends = args[4][args[4] > 0]
+        print(f"[2] biquad_cascade [{FLEET}, {T}] x {sections} sections in chunks: "
+              f"max_abs_err {err:.3e} (tol 1e-6); crossfades end within the block on "
+              f"{int((ends < T).sum())} of {ends.numel()} fading sections", flush=True)
+        check(np.isfinite(err) and err <= 1e-6,
+              f"biquad_cascade disagrees with its plain twin over {T}-sample blocks")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+
+
+def env_inputs():
+    """``(xs, env0)``: env_scan at the tool's shapes, 50 blocks of
+    ``[480, 2048]`` time-major."""
+    rng = np.random.default_rng(7)
+    xs = torch.tensor(rng.standard_normal((ENV_BLOCKS, BLOCK, 2048)).astype(np.float32),
+                      device=DEVICE)
+    return xs, torch.zeros(2048, device=DEVICE)
+
+
+def env_run(fn, xs, env0):
+    """``fn`` (env_scan or its twin) over the blocks of ``xs``."""
+    env, ys = env0, []
+    for r in range(xs.shape[0]):
+        y, env = fn(xs[r], env)
+        ys.append(y)
+    return torch.stack(ys), env
+
+
+def max_affine_inputs():
+    """``(v, rho, c, u0)`` as the lookahead limiter gives them, [1024, 480]."""
+    rng = np.random.default_rng(10)
+    target = torch.tensor(rng.uniform(0.5, 1.0, (FLEET, BLOCK)).astype(np.float32),
+                          device=DEVICE)
+    target = torch.where(target > 0.8, torch.ones_like(target), target)
+    v = (1.0 - target).contiguous()
+    rho = torch.full((FLEET,), float(np.exp(-1.0 / (0.05 * FS))), device=DEVICE)
+    c = ((1.0 - rho)[:, None] * v).contiguous()
+    return v, rho, c, torch.rand(FLEET, device=DEVICE)
+
+
+def compressor_inputs():
+    """``(label, (cfg, params, makeup, scan_state, x))`` for both flag sets of
+    the serving chain's options."""
+    from audioforge_tpu_torch.ops import compressor as comp
+
+    xc = torch.tensor(speech_like(FLEET, 1, 9), device=DEVICE)
+    out = []
     for flags in ({"sidechain_highpass_enabled": True},
                   {"sidechain_highpass_enabled": True, "adaptive_release": True,
                    "auto_makeup_enabled": True}):
         cfg = comp.CompressorConfig(**flags)
-        p = {k: torch.full((FLEET,), float(np.float32(val)), device=dev)
+        p = {k: torch.full((FLEET,), float(np.float32(val)), device=DEVICE)
              for k, val in comp.compressor_params(cfg, threshold_db=-30.0).items()}
-        s0 = comp.compressor_init(cfg, n=FLEET, device=dev)
+        s0 = comp.compressor_init(cfg, n=FLEET, device=DEVICE)
         scan_state = {k: s0[k] for k in comp.SCAN_STATE_KEYS}
-        makeup = torch.full((FLEET,), 1.2, device=dev)
-        sk, yk = comp.compressor_scan(cfg, p, makeup, scan_state, xc)
-        sp, yp = comp.compressor_scan_plain(cfg, p, makeup, scan_state, xc)
+        makeup = torch.full((FLEET,), 1.2, device=DEVICE)
+        out.append((str(sorted(flags)), (cfg, p, makeup, scan_state, xc)))
+    return out
+
+
+def phase2_pr1_kernels(res: Results) -> None:
+    from audioforge_tpu_torch.ops import envelope, scan
+    from audioforge_tpu_torch.ops import compressor as comp
+
+    n_elem = FLEET * BLOCK
+    xs, env0 = env_inputs()
+    B = xs.shape[2]
+    yk, ek = env_run(envelope.env_scan, xs, env0)
+    yp, ep = env_run(envelope.env_scan_plain, xs, env0)
+    err = max((yk - yp).abs().max().item(), (ek - ep).abs().max().item())
+    times = tuple(t / ENV_BLOCKS for t in
+                  kernel_times(lambda: env_run(envelope.env_scan, xs, env0), 3))
+    plain_ms = cuda_ms(lambda: env_run(envelope.env_scan_plain, xs, env0), 1) / ENV_BLOCKS
+    # per element: abs, compare/select, 4 for the one-pole, max, log
+    res.report("env_scan", err, 1e-5, times, plain_ms,
+               f"[{BLOCK}, {B}] x {ENV_BLOCKS} blocks", 8 * BLOCK * B, f32_ops=8 * BLOCK * B)
+
+    args = max_affine_inputs()
+    err = (scan.max_affine_scan(*args) - scan.max_affine_scan_plain(*args)).abs().max().item()
+    times = kernel_times(lambda: scan.max_affine_scan(*args))
+    plain_ms = cuda_ms(lambda: scan.max_affine_scan_plain(*args), 2)
+    res.report("max_affine_scan", err, 1e-5, times, plain_ms, f"[{FLEET}, {BLOCK}]",
+               12 * n_elem, f32_ops=3 * n_elem)
+
+    phase2_biquad(res)
+
+    for label, args in compressor_inputs():
+        sk, yk = comp.compressor_scan(*args)
+        sp, yp = comp.compressor_scan_plain(*args)
         err = (yk - yp).abs().max().item()
         check((sk["current_gr_db"] - sp["current_gr_db"]).abs().max().item() <= 1e-3,
               "compressor_scan state disagrees with its plain twin")
-        ms = cuda_ms(lambda: comp.compressor_scan(cfg, p, makeup, scan_state, xc), 50)
-        plain_ms = cuda_ms(
-            lambda: comp.compressor_scan_plain(cfg, p, makeup, scan_state, xc), 1)
+        times = kernel_times(lambda: comp.compressor_scan(*args))
+        plain_ms = cuda_ms(lambda: comp.compressor_scan_plain(*args), 1)
         # ~70 f32 operations per sample (log10f, powf and sqrtf counted once)
-        res.report("compressor_scan", err, 1e-5, ms, plain_ms,
-                   f"[{FLEET}, {BLOCK}] {sorted(flags)}",
+        res.report("compressor_scan", err, 1e-5, times, plain_ms,
+                   f"[{FLEET}, {BLOCK}] {label}",
                    8 * n_elem + FLEET * 4 * 2 * (8 + 12), f32_ops=70 * n_elem)
 
 
-def phase2_gate(res: Results) -> None:
-    """gate_scan in every mode over 30 blocks of 5-10 Hz bursts whose VAD
-    inputs (probability near 0 or near 1) change per block, so hold, chatter
-    and (VAD modes) auto-relax engage."""
+def gate_inputs():
+    """``(name, cfg, params, state, blocks)`` for every gate mode: 30 blocks
+    ``(x, vad inputs)`` of 5-10 Hz bursts whose VAD inputs (probability near
+    0 or near 1) change per block, so hold, chatter and (VAD modes)
+    auto-relax engage."""
     from audioforge_tpu_torch.ops import gate
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(13)
-    n_blocks = 30
-    t = np.arange(n_blocks * BLOCK) / FS
+    t = np.arange(GATE_BLOCKS * BLOCK) / FS
     env = np.sin(2 * np.pi * rng.uniform(5.0, 10.0, (FLEET, 1)) * t
                  + rng.uniform(0, 6, (FLEET, 1))) > 0.2
     x = torch.tensor((0.2 * env * np.sin(2 * np.pi * 180.0 * t)
                       + 0.002 * rng.standard_normal((FLEET, t.size))).astype(np.float32),
                      device=dev)
-    n_elem = FLEET * BLOCK
+    out = []
     for mode, name in ((gate.THRESHOLD_ONLY, "threshold-only"),
                        (gate.VAD_ASSISTED, "VAD-assisted"), (gate.VAD_ONLY, "VAD-only")):
         cfg = gate.GateConfig(mode=mode)
@@ -302,18 +475,31 @@ def phase2_gate(res: Results) -> None:
              for k, v in gate.gate_params(cfg, attack_ms=5.0, release_ms=60.0).items()}
         p["threshold_db"] = torch.tensor(rng.uniform(-45, -25, FLEET).astype(np.float32),
                                          device=dev)
-        st = gate.gate_init(n=FLEET, device=dev)
-        err, diverged = 0.0, 0
-        for b in range(n_blocks):
-            xb = x[:, b * BLOCK:(b + 1) * BLOCK].contiguous()
+        blocks = []
+        for b in range(GATE_BLOCKS):
             prob = np.where(rng.random(FLEET) > 0.5, rng.uniform(0.7, 1.0, FLEET),
                             rng.uniform(0.0, 0.3, FLEET))
             vad = (torch.tensor(prob.astype(np.float32), device=dev),
                    torch.tensor(rng.random(FLEET) > 0.2, device=dev),
                    torch.tensor(rng.random(FLEET) > 0.5, device=dev),
                    torch.full((FLEET,), 0.48, device=dev))
-            sk, yk, _ = gate.gate_process(cfg, st, xb, *vad, p)
-            sp, yp, _ = gate.gate_process_plain(cfg, st, xb, *vad, p)
+            blocks.append((x[:, b * BLOCK:(b + 1) * BLOCK].contiguous(), vad))
+        out.append((name, cfg, p, gate.gate_init(n=FLEET, device=dev), blocks))
+    return out
+
+
+def phase2_gate(res: Results) -> None:
+    """gate_scan in every mode over :func:`gate_inputs`, each block against
+    the plain twin from the kernel's state; timed on the last block."""
+    from audioforge_tpu_torch.ops import gate
+
+    n_elem = FLEET * BLOCK
+    for name, cfg, p, st, blocks in gate_inputs():
+        err, diverged = 0.0, 0
+        for xb, vad in blocks:
+            args = (cfg, st, xb, *vad, p)
+            sk, yk, _ = gate.gate_process(*args)
+            sp, yp, _ = gate.gate_process_plain(*args)
             # a stream diverges where a threshold test flipped on a 1-ulp
             # difference of log10f/powf: its integer state or its audio
             # departs from the plain twin's
@@ -323,39 +509,46 @@ def phase2_gate(res: Results) -> None:
                 apart |= sk[k] != sp[k]
             diverged += int(apart.sum().item())
             err = max(err, float(torch.where(apart, 0.0, stream_err).max().item()))
-            if b == n_blocks - 1:
-                args = (cfg, st, xb, *vad, p)
             st = sk
         chatter = int((st["chatter_event_count"] > 0).sum().item())
         relax = int((st["auto_relax_remaining"] > 0).sum().item())
-        print(f"[2] gate_scan {name}: {diverged} of {FLEET * n_blocks} stream-blocks "
+        print(f"[2] gate_scan {name}: {diverged} of {FLEET * GATE_BLOCKS} stream-blocks "
               f"diverged from the plain twin (tol 0.1 %); chatter fired on {chatter} "
               f"streams, {relax} in auto-relax, "
               f"{int((st['hold_remaining'] > 0).sum())} holding", flush=True)
-        check(diverged <= FLEET * n_blocks // 1000,
+        check(diverged <= FLEET * GATE_BLOCKS // 1000,
               f"gate_scan ({name}): {diverged} stream-blocks differ from the plain twin")
-        check(chatter > 0 and (relax > 0 or mode == gate.THRESHOLD_ONLY),
+        check(chatter > 0 and (relax > 0 or cfg.mode == gate.THRESHOLD_ONLY),
               f"gate_scan ({name}): chatter or auto-relax never engaged")
-        ms = cuda_ms(lambda: gate.gate_process(*args), 50)
+        times = kernel_times(lambda: gate.gate_process(*args))
         plain_ms = cuda_ms(lambda: gate.gate_process_plain(*args), 1)
         # ~35 f32 operations per sample threshold-only, ~80 with VAD fusion
-        ops = (35 if mode == gate.THRESHOLD_ONLY else 80) * n_elem
-        res.report("gate_scan", err, 1e-4, ms, plain_ms, f"[{FLEET}, {BLOCK}] {name}",
+        ops = (35 if cfg.mode == gate.THRESHOLD_ONLY else 80) * n_elem
+        res.report("gate_scan", err, 1e-4, times, plain_ms, f"[{FLEET}, {BLOCK}] {name}",
                    8 * n_elem + FLEET * 4 * 2 * 18, f32_ops=ops)
+
+
+def deesser_inputs(auto: bool):
+    """``(config, state, x)``: the de-esser at threshold -40 dB (auto or
+    manual gain computer) with its envelopes warmed over two blocks of
+    :func:`mic_capture`, so the reduction is engaged, and the third block."""
+    from audioforge_tpu_torch.ops import deesser
+
+    dev = torch.device(DEVICE)
+    x = torch.tensor(mic_capture(FLEET, 3, 14), device=dev)
+    cfg = deesser.DeEsserConfig(enabled=True, auto_enabled=auto, threshold_db=-40.0)
+    st = deesser.deesser_init(cfg, n=FLEET, device=dev)
+    for b in range(2):
+        st, _ = deesser.deesser_scan(cfg, st, x[:, b * BLOCK:(b + 1) * BLOCK].contiguous())
+    return cfg, st, x[:, 2 * BLOCK:].contiguous()
 
 
 def phase2_deesser(res: Results) -> None:
     from audioforge_tpu_torch.ops import deesser
 
-    dev = torch.device(DEVICE)
-    x = torch.tensor(mic_capture(FLEET, 3, 14), device=dev)
     n_elem = FLEET * BLOCK
     for auto in (True, False):
-        cfg = deesser.DeEsserConfig(enabled=True, auto_enabled=auto, threshold_db=-40.0)
-        st = deesser.deesser_init(cfg, n=FLEET, device=dev)
-        for b in range(2):  # warm the envelopes so the reduction is engaged
-            st, _ = deesser.deesser_scan(cfg, st, x[:, b * BLOCK:(b + 1) * BLOCK].contiguous())
-        xb = x[:, 2 * BLOCK:].contiguous()
+        cfg, st, xb = deesser_inputs(auto)
         sk, yk = deesser.deesser_scan(cfg, st, xb)
         sp, yp = deesser.deesser_scan_plain(cfg, st, xb)
         err = (yk - yp).abs().max().item()
@@ -363,54 +556,61 @@ def phase2_deesser(res: Results) -> None:
         check(serr <= 1e-3, f"deesser_scan state disagrees with its plain twin ({serr:.3e})")
         engaged = int((sk["current_reduction_db"] > 0.1).sum().item())
         check(engaged >= FLEET // 8, f"deesser_scan: reduction on only {engaged} streams")
-        ms = cuda_ms(lambda: deesser.deesser_scan(cfg, st, xb), 50)
+        times = kernel_times(lambda: deesser.deesser_scan(cfg, st, xb))
         plain_ms = cuda_ms(lambda: deesser.deesser_scan_plain(cfg, st, xb), 1)
         name = "auto" if auto else "manual"
         print(f"[2] deesser_scan {name}: reduction > 0.1 dB on {engaged} streams, "
               f"max {sk['current_reduction_db'].max().item():.2f} dB", flush=True)
         # ~270 f32 operations per sample: 9 biquads, envelopes, 4 log10f,
         # 3 sqrtf, 3 powf, the gain computer per band
-        res.report("deesser_scan", err, 1e-4, ms, plain_ms,
+        res.report("deesser_scan", err, 1e-4, times, plain_ms,
                    f"[{FLEET}, {BLOCK}] {name}", 8 * n_elem + FLEET * 4 * 2 * 33,
                    f32_ops=270 * n_elem)
 
 
-def phase2_cleanup(res: Results) -> None:
-    """cleanup_scan on the inputs routing_process gives it: a state whose
-    window ends inside the block, the hum notch retuned to 50.4 Hz with its
-    crossfade in flight."""
+def cleanup_inputs(mode: int):
+    """The arguments routing_process gives cleanup_scan in ``mode``: a state
+    whose window ends inside the block, the hum notch retuned to 50.4 Hz with
+    its crossfade in flight."""
     from audioforge_tpu_torch.ops import routing
 
     dev = torch.device(DEVICE)
     x = torch.tensor(mic_capture(FLEET, 2, 15), device=dev)
+    cfg = routing.RoutingConfig(cleanup_mode=mode)
+    st = routing.routing_init(cfg, n=FLEET, device=dev)
+    # after the first block the window ends 200 samples into the second
+    st["window_pos"] = torch.full((FLEET,), cfg.window_samples - 200 - BLOCK,
+                                  dtype=torch.int32, device=dev)
+    st, _, _ = routing.routing_process(cfg, st, x[:, :BLOCK].contiguous())
+    line = torch.full((FLEET,), 50.4, device=dev)
+    for key, mult in (("hum_notch", 1.0), ("harmonic_notch", 2.0)):
+        st[key] = routing._smooth_notch_retune(st[key], line * mult, FS,
+                                               cfg.notch_fade_samples)
+    st.update(hum_line_hz=line, hum_hold=torch.full_like(st["hum_hold"], 20000),
+              hum_strength=torch.full_like(line, 0.5),
+              harmonic_strength=torch.full_like(line, 0.3))
+    captured = {}
+    run = routing.cleanup_scan
+
+    def spy(*args):
+        captured["args"] = args
+        return run(*args)
+
+    routing.cleanup_scan = spy
+    try:
+        routing.routing_process(cfg, st, x[:, BLOCK:].contiguous())
+    finally:
+        routing.cleanup_scan = run
+    return captured["args"]
+
+
+def phase2_cleanup(res: Results) -> None:
+    """cleanup_scan on :func:`cleanup_inputs` in both cleanup modes."""
+    from audioforge_tpu_torch.ops import routing
+
     n_elem = FLEET * BLOCK
     for mode, name in ((routing.CLEANUP_GENTLE, "gentle"), (routing.CLEANUP_STRONG, "strong")):
-        cfg = routing.RoutingConfig(cleanup_mode=mode)
-        st = routing.routing_init(cfg, n=FLEET, device=dev)
-        # after the first block the window ends 200 samples into the second
-        st["window_pos"] = torch.full((FLEET,), cfg.window_samples - 200 - BLOCK,
-                                      dtype=torch.int32, device=dev)
-        st, _, _ = routing.routing_process(cfg, st, x[:, :BLOCK].contiguous())
-        line = torch.full((FLEET,), 50.4, device=dev)
-        for key, mult in (("hum_notch", 1.0), ("harmonic_notch", 2.0)):
-            st[key] = routing._smooth_notch_retune(st[key], line * mult, FS,
-                                                   cfg.notch_fade_samples)
-        st.update(hum_line_hz=line, hum_hold=torch.full_like(st["hum_hold"], 20000),
-                  hum_strength=torch.full_like(line, 0.5),
-                  harmonic_strength=torch.full_like(line, 0.3))
-        captured = {}
-        run = routing.cleanup_scan
-
-        def spy(*args):
-            captured["args"] = args
-            return run(*args)
-
-        routing.cleanup_scan = spy
-        try:
-            routing.routing_process(cfg, st, x[:, BLOCK:].contiguous())
-        finally:
-            routing.cleanup_scan = run
-        args = captured["args"]
+        args = cleanup_inputs(mode)
         check(bool((args[2]["boundary"] == 200).all()), "the window does not end mid-block")
         check(bool((args[1]["hum_notch"]["fade_remaining"] > 0).all()),
               "no notch crossfade in flight")
@@ -420,17 +620,51 @@ def phase2_cleanup(res: Results) -> None:
         serr = _max_err(ok, op)
         check(serr <= 1e-5, f"cleanup_scan state disagrees with its plain twin ({serr:.3e})")
         check(torch.equal(ok["rumble_hold"], op["rumble_hold"]), "cleanup_scan rumble hold")
-        ms = cuda_ms(lambda: routing.cleanup_scan(*args), 50)
+        times = kernel_times(lambda: routing.cleanup_scan(*args))
         plain_ms = cuda_ms(lambda: routing.cleanup_scan_plain(*args), 1)
         fading = sum(int((args[1][k]["fade_remaining"] > 0).sum().item())
                      for k in ("hum_notch", "harmonic_notch"))
         # f32: ~20 rumble operations per sample; f64: DC blocker (3), two
         # notches' lane 0 and mix (12 each), lane 1 and blend while fading (12)
         f64_ops = BLOCK * (27 * FLEET + 12 * fading)
-        res.report("cleanup_scan", err, 1e-5, ms, plain_ms,
+        res.report("cleanup_scan", err, 1e-5, times, plain_ms,
                    f"[{FLEET}, {BLOCK}] {name}, window ends at t=200, crossfade in flight",
                    8 * n_elem + FLEET * (4 * (8 + 20 + 10) + 8 * 8 * 2),
                    f32_ops=20 * n_elem, f64_ops=f64_ops)
+
+
+def timed_calls():
+    """``(label, call, reps, blocks)`` for every kernel configuration phase
+    [2] times, on phase [2]'s inputs: ``call`` runs the wrapper on ``blocks``
+    blocks; a time is :func:`kernel_times` of ``call`` over ``reps``
+    calls, over ``blocks``. compare_kernels.py times these per checkout."""
+    from audioforge_tpu_torch.ops import (biquad, compressor, deesser, envelope, gate,
+                                          routing, scan)
+
+    xs, env0 = env_inputs()
+    yield "env_scan", lambda: env_run(envelope.env_scan, xs, env0), 3, ENV_BLOCKS
+    args = max_affine_inputs()
+    yield "max_affine_scan", lambda: scan.max_affine_scan(*args), 20, 1
+    xb, shapes = biquad_inputs()
+    for name, sections, st in shapes:
+        bq = _cascade_args(xb, st)
+        yield (f"biquad_cascade {name} ({sections} sections)",
+               lambda bq=bq: biquad.biquad_cascade(*bq), 20, 1)
+    for label, args in compressor_inputs():
+        yield (f"compressor_scan {label}",
+               lambda args=args: compressor.compressor_scan(*args), 20, 1)
+    for name, cfg, p, st, blocks in gate_inputs():
+        for xg, vad in blocks[:-1]:  # the kernel's state before the last block
+            st, _, _ = gate.gate_process(cfg, st, xg, *vad, p)
+        args = (cfg, st, blocks[-1][0], *blocks[-1][1], p)
+        yield f"gate_scan {name}", lambda args=args: gate.gate_process(*args), 20, 1
+    for auto in (True, False):
+        args = deesser_inputs(auto)
+        yield (f"deesser_scan {'auto' if auto else 'manual'}",
+               lambda args=args: deesser.deesser_scan(*args), 20, 1)
+    for mode, name in ((routing.CLEANUP_GENTLE, "gentle"), (routing.CLEANUP_STRONG, "strong")):
+        args = cleanup_inputs(mode)
+        yield f"cleanup_scan {name}", lambda args=args: routing.cleanup_scan(*args), 20, 1
 
 
 def _engine(capacity: int, device: str, audio: np.ndarray, chain=None):
@@ -640,7 +874,6 @@ SOURCES = {
     "cleanup_scan": ("audioforge_tpu_torch/csrc/cleanup_scan.cu",
                      "audioforge_tpu/ops/routing.py:476"),
 }
-
 
 def phase6_profile(card: str) -> None:
     """CUDA kernels per ``step()`` and the card's busy share over 3 steps at

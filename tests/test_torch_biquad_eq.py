@@ -8,6 +8,7 @@ band layout (the reference picks its precision by band index).
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -69,6 +70,51 @@ def test_unit_crossfade_in_flight_matches_reference():
         np.testing.assert_allclose(st["z"][:, 0].numpy(), np.asarray(sj["z"]),
                                    atol=1e-5)
     np.testing.assert_array_equal(st["coeffs"][:, 0].numpy(), np.asarray(sj["coeffs"]))
+
+
+@pytest.mark.parametrize("S", [2, 10])
+def test_cascade_crossfade_ending_mid_block_matches_reference(S):
+    """S sections in series (the port's plain twin in one cascade; the
+    reference's ``unit_process`` per section, chained); the even sections
+    crossfade over 700 samples from block 1, ending at t = 220 of block 2,
+    the odd ones stay idle."""
+    rng = np.random.default_rng(20 + S)
+    freqs = np.geomspace(80.0, 10000.0, S)
+    old = np.stack([jbq.design(jbq.PEAKING, f, g, 2.0, FS)
+                    for f, g in zip(freqs, rng.uniform(-4, 4, S))])
+    new = np.stack([jbq.design(jbq.PEAKING, f * 1.3, g, 1.2, FS)
+                    for f, g in zip(freqs, rng.uniform(-4, 4, S))])
+    fading = np.arange(S) % 2 == 0
+    fade = 700
+    x = _noise(30 + S, 3)
+    sj = [jbq.unit_init(jnp.asarray(np.broadcast_to(c, (N, 5)), jnp.float32))
+          for c in old]
+    st = tbq.unit_init(old, N, "cpu")
+    for b in range(3):
+        if b == 1:
+            sj = [jbq.unit_schedule(s, jnp.asarray(new[i], jnp.float32), fade)
+                  if fading[i] else s for i, s in enumerate(sj)]
+            sub = tbq.unit_schedule({k: v[:, fading] for k, v in st.items()},
+                                    new[fading], fade)
+            st = {k: v.clone() for k, v in st.items()}
+            for k, v in sub.items():
+                st[k][:, fading] = v
+        xb = x[:, b * T:(b + 1) * T]
+        yj = jnp.asarray(xb)
+        for i in range(S):
+            sj[i], yj = jbq.unit_process(sj[i], yj)
+        st, yt = tbq.unit_process(st, _t(xb))
+        _assert_audio(yt.numpy(), yj)
+        np.testing.assert_array_equal(
+            st["fade_remaining"].numpy(),
+            np.stack([np.asarray(s["fade_remaining"]) for s in sj], axis=1))
+        np.testing.assert_array_equal(
+            st["fade_total"].numpy(),
+            np.stack([np.asarray(s["fade_total"]) for s in sj], axis=1))
+    assert not st["fade_remaining"].any()  # every crossfade ended in block 2
+    np.testing.assert_array_equal(
+        st["coeffs"][:, :, 0].numpy(),
+        np.stack([np.asarray(s["coeffs"])[:, 0] for s in sj], axis=1))
 
 
 def test_eq_with_band_edit_matches_reference():
