@@ -36,6 +36,75 @@ AFK_HD float afk_linear_to_db(float v, float floor_db) {
     return fmaxf(20.0f * log10f(fmaxf(fabsf(v), 1e-10f)), floor_db);
 }
 
+// Hide a value's origin from the optimiser. A recurrence's step picks one of
+// two precomputed terms (attack or release), formed off its dependency chain;
+// without this the compiler folds the pick back into one term computed after
+// the compare, on the chain.
+#ifdef __CUDA_ARCH__
+#define AFK_KEEP(v) asm("" : "+f"(v))
+#else
+#define AFK_KEEP(v) ((void)0)
+#endif
+
+// Steps t0 .. t0+3 on the values read for them.
+template <int NIN, typename Step>
+AFK_HD void afk_serial_group(const float (&cur)[NIN][4], int t0, Step& step) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        float v[NIN];
+#pragma unroll
+        for (int i = 0; i < NIN; ++i) v[i] = cur[i][j];
+        step(t0 + j, v);
+    }
+}
+
+// Run step(t, v) for t = 0 .. tc-1 in order with v[i] = in[i][t]: the serial
+// loop of a recurrence over rows of a shared-memory tile. The inputs of the
+// next four samples are read while the current four step, so no load's
+// latency sits on the recurrence's chain. A step may write element t of any
+// row, also of an input row: its value for t has been read by then.
+template <int NIN, typename Step>
+AFK_HD void afk_serial_loop(const float* const (&in)[NIN], int tc, Step& step) {
+    float cur[NIN][4], nxt[NIN][4];
+    const int end = afk_imax(tc - 1, 0);
+#pragma unroll
+    for (int i = 0; i < NIN; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cur[i][j] = in[i][afk_imin(j, end)];
+    int t0 = 0;
+    for (; t0 + 8 <= tc; t0 += 4) {
+#pragma unroll
+        for (int i = 0; i < NIN; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) nxt[i][j] = in[i][t0 + 4 + j];
+        afk_serial_group(cur, t0, step);
+#pragma unroll
+        for (int i = 0; i < NIN; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) cur[i][j] = nxt[i][j];
+    }
+    if (t0 + 4 <= tc) {  // the last whole group: its read-ahead stays in the chunk
+#pragma unroll
+        for (int i = 0; i < NIN; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) nxt[i][j] = in[i][afk_imin(t0 + 4 + j, end)];
+        afk_serial_group(cur, t0, step);
+#pragma unroll
+        for (int i = 0; i < NIN; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) cur[i][j] = nxt[i][j];
+        t0 += 4;
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {  // fewer than four are left
+        if (t0 + j >= tc) break;
+        float v[NIN];
+#pragma unroll
+        for (int i = 0; i < NIN; ++i) v[i] = cur[i][j];
+        step(t0 + j, v);
+    }
+}
+
 // ---------------------------------------------------------------------------
 // Shared-memory tiles of [N, T] stream-major blocks.
 //

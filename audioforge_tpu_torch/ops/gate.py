@@ -3,7 +3,8 @@
 Counterpart of ``audioforge_tpu/ops/gate.py`` (every mode). The gain
 smoother feeds back into the state machine, so the recurrence is
 sequential: on the card it is the hand-written ``gate_scan`` kernel
-(``csrc/gate_scan.cu``, one thread per stream), on the CPU the per-sample
+(``csrc/gate_scan.cu``: the recurrences serial on a lane per stream, the
+level and target-gain math over all samples between them), on the CPU the per-sample
 loop :func:`gate_process_plain`.
 """
 
@@ -157,14 +158,14 @@ def _gate_scan(config, state, x, vad_probability, vad_available,
     n, T = x.shape
     dev = x.device
     p = torch.stack([params[k] for k in PARAM_KEYS])
+    fs_in = torch.stack([state[k] for k in FLOAT_KEYS])
     if config.mode == THRESHOLD_ONLY:  # the kernel reads no VAD input
-        vad = torch.zeros((4, n), dtype=torch.float32, device=dev)
+        vad = fs_in[:4]
     else:
         vad = torch.stack([vad_probability.to(torch.float32),
                            vad_available.to(torch.float32),
                            vad_gate_open.to(torch.float32),
                            vad_threshold.to(torch.float32)])
-    fs_in = torch.stack([state[k] for k in FLOAT_KEYS])
     is_in = torch.stack([state[k].to(torch.int32) for k in INT_KEYS])
     kernels.check_tensor("gate_scan x", x, torch.float32, (n, T), dev)
     kernels.check_tensor("gate_scan params", p, torch.float32,
@@ -182,8 +183,9 @@ def _gate_scan(config, state, x, vad_probability, vad_available,
                    fs_out.data_ptr(), is_out.data_ptr(), n, T, int(config.mode),
                    *_scan_consts(config), kernels.stream_of(dev))
     s = dict(zip(FLOAT_KEYS, fs_out.unbind(0)))
-    for k, v in zip(INT_KEYS, is_out.unbind(0)):
-        s[k] = v != 0 if k in _BOOL_KEYS else v
+    flags = is_out != 0
+    for i, k in enumerate(INT_KEYS):
+        s[k] = flags[i] if k in _BOOL_KEYS else is_out[i]
     return s, y
 
 

@@ -270,6 +270,22 @@ def _take(a, idx):
     return torch.gather(a, -1, idx[:, None])[:, 0]
 
 
+def _hum_bank(bin_phase, omegas, boundary, x):
+    """The oscillator bank over one block ``x [N, T]``: the I and Q sums of
+    the 26 bins ``[N, 2, 26]`` and the energy ``[N, 2]``, each over the
+    samples before (index 0) and from (index 1) ``boundary [N]``, where the
+    analysis window completes."""
+    n, T = x.shape
+    t_idx = torch.arange(T, dtype=torch.float32, device=x.device)
+    angles = bin_phase.reshape(n, -1)[:, :, None] + omegas[:, None] * t_idx
+    pre_mask = (t_idx < boundary[:, None]).to(torch.float32)
+    masked = torch.stack([x * pre_mask, x * (1.0 - pre_mask)], dim=1)  # [N, 2, T]
+    i_sums = torch.einsum("nmt,nbt->nmb", masked, torch.cos(angles))
+    q_sums = torch.einsum("nmt,nbt->nmb", masked, torch.sin(angles))
+    energy = (masked * x[:, None]).sum(dim=-1)
+    return i_sums, q_sums, energy
+
+
 def _hum_analysis(config: RoutingConfig, state, x):
     """The oscillator bank's I/Q sums over the block and, where the 250 ms
     window completes inside it, the window finish: candidate gating,
@@ -285,15 +301,9 @@ def _hum_analysis(config: RoutingConfig, state, x):
     gentle = config.cleanup_mode == CLEANUP_GENTLE
     B = HUM_TRACK_BINS
     omegas = _bank_omegas(fs, x.device)
-    t_idx = torch.arange(T, dtype=torch.float32, device=x.device)
-    angles = state["bin_phase"].reshape(n, 2 * B)[:, :, None] + omegas[:, None] * t_idx
     pos0 = state["window_pos"]
     boundary = W - pos0  # samples until the window completes (> 0)
-    pre_mask = (t_idx < boundary[:, None]).to(torch.float32)
-    masked = torch.stack([x * pre_mask, x * (1.0 - pre_mask)], dim=1)  # [N, 2, T]
-    i_sums = torch.einsum("nmt,nbt->nmb", masked, torch.cos(angles))
-    q_sums = torch.einsum("nmt,nbt->nmb", masked, torch.sin(angles))
-    energy = (masked * x[:, None]).sum(dim=-1)  # [N, 2]: pre, post
+    i_sums, q_sums, energy = _hum_bank(state["bin_phase"], omegas, boundary, x)
     iq0 = state["iq"].reshape(n, 2 * B, 2)
     i_win = iq0[..., 0] + i_sums[:, 0]
     q_win = iq0[..., 1] + q_sums[:, 0]

@@ -6,8 +6,8 @@ of which stops the script with a non-zero exit when it fails:
 0. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device is a failure (there is no CPU path);
 1. build: compiles the CUDA kernels under audioforge_tpu_torch/csrc/ and
-   prints ptxas's registers and spills; a spill in biquad_cascade or
-   deesser_scan fails;
+   prints ptxas's registers and spills; a spill in biquad_cascade,
+   deesser_scan, compressor_scan or gate_scan fails;
 2. kernels: each kernel against its plain PyTorch twin on the card, at the
    shapes the serving path gives it, with its time on the card (a CUDA
    graph of the wrapper call, replayed), the eager call's and the plain
@@ -16,7 +16,11 @@ of which stops the script with a non-zero exit when it fails:
    larger); biquad_cascade at 1, 2, 10 and 17 sections (crossfades in
    flight and idle), with its time per block weighted by the launches of
    each section count, and checked at 1 and 10 sections on blocks long
-   enough that the kernel runs them in several shared-memory chunks;
+   enough that the kernel runs them in several shared-memory chunks, as are
+   compressor_scan (also without the sidechain high-pass) and gate_scan
+   (every mode) on blocks of 960 samples; then, as information, the eager
+   time per call of the three block-level torch stages that have no kernel
+   yet (limiter window max, true-peak polyphase FIR, hum oscillator bank);
 3. default path: the serving engine at fleet 1024 (RNNoise + default live
    chain) through one warm-up step, then 5 x step() and step_many(10) with
    the launch counts read over those 15 blocks: finite output within the
@@ -61,7 +65,9 @@ FULL_BLOCKS = 60            # hum windows (250 ms) complete at blocks 25 and 50
 ENV_BLOCKS = 50             # env_scan blocks per run (the tool's 50 blocks)
 GATE_BLOCKS = 30            # gate_scan blocks per mode
 # kernels whose lane state must fit in registers (phase [1] fails on a spill)
-NO_SPILL_KERNELS = ("biquad_cascade_kernel", "deesser_scan_kernel")
+NO_SPILL_KERNELS = ("biquad_cascade_kernel", "deesser_scan_kernel",
+                    "compressor_scan_kernel", "gate_scan_kernel")
+CHUNKED_BLOCK = 2 * BLOCK   # compressor_scan and gate_scan run it as two chunks
 
 
 def fail(msg: str) -> None:
@@ -221,6 +227,13 @@ def _max_err(a: dict, b: dict) -> float:
         else:
             worst = max(worst, (v.double() - b[k].double()).abs().max().item())
     return worst
+
+
+def _state_err(a: dict, b: dict) -> float:
+    """Largest difference over matching ``[N]`` state tensors, each relative
+    to the larger of 1 and the reference's magnitude (a release time of
+    hundreds of ms carries an f32 rounding of 1e-5 per step)."""
+    return max(((a[k] - v).abs() / v.abs().clamp_min(1.0)).max().item() for k, v in b.items())
 
 
 def _idle_odd_streams(st: dict) -> dict:
@@ -393,15 +406,17 @@ def max_affine_inputs():
 
 
 def compressor_inputs():
-    """``(label, (cfg, params, makeup, scan_state, x))`` for both flag sets of
-    the serving chain's options."""
+    """``(label, (cfg, params, makeup, scan_state, x))`` for the flag sets of
+    the serving chain's options and for the compressor without its sidechain
+    high-pass."""
     from audioforge_tpu_torch.ops import compressor as comp
 
     xc = torch.tensor(speech_like(FLEET, 1, 9), device=DEVICE)
     out = []
     for flags in ({"sidechain_highpass_enabled": True},
                   {"sidechain_highpass_enabled": True, "adaptive_release": True,
-                   "auto_makeup_enabled": True}):
+                   "auto_makeup_enabled": True},
+                  {}):
         cfg = comp.CompressorConfig(**flags)
         p = {k: torch.full((FLEET,), float(np.float32(val)), device=DEVICE)
              for k, val in comp.compressor_params(cfg, threshold_db=-30.0).items()}
@@ -414,7 +429,6 @@ def compressor_inputs():
 
 def phase2_pr1_kernels(res: Results) -> None:
     from audioforge_tpu_torch.ops import envelope, scan
-    from audioforge_tpu_torch.ops import compressor as comp
 
     n_elem = FLEET * BLOCK
     xs, env0 = env_inputs()
@@ -437,13 +451,36 @@ def phase2_pr1_kernels(res: Results) -> None:
                12 * n_elem, f32_ops=3 * n_elem)
 
     phase2_biquad(res)
+    phase2_compressor(res)
 
+
+def phase2_compressor(res: Results) -> None:
+    """compressor_scan on :func:`compressor_inputs`, and from the kernel's
+    state over a block that runs as two shared-memory chunks."""
+    from audioforge_tpu_torch.ops import compressor as comp
+
+    n_elem = FLEET * BLOCK
+    x_long = torch.tensor(speech_like(FLEET, CHUNKED_BLOCK // BLOCK, 19), device=DEVICE)
     for label, args in compressor_inputs():
         sk, yk = comp.compressor_scan(*args)
         sp, yp = comp.compressor_scan_plain(*args)
         err = (yk - yp).abs().max().item()
-        check((sk["current_gr_db"] - sp["current_gr_db"]).abs().max().item() <= 1e-3,
-              "compressor_scan state disagrees with its plain twin")
+        serr = _state_err(sk, sp)
+        check((sk["current_gr_db"] - sp["current_gr_db"]).abs().max().item() <= 1e-3
+              and serr <= 1e-3,
+              f"compressor_scan state disagrees with its plain twin ({serr:.3e})")
+        # from the kernel's state, a block that runs as two shared-memory chunks
+        long_args = (*args[:3], sk, x_long)
+        sk2, yk2 = comp.compressor_scan(*long_args)
+        sp2, yp2 = comp.compressor_scan_plain(*long_args)
+        err2, serr2 = (yk2 - yp2).abs().max().item(), _state_err(sk2, sp2)
+        gr_err2 = (sk2["current_gr_db"] - sp2["current_gr_db"]).abs().max().item()
+        print(f"[2] compressor_scan [{FLEET}, {CHUNKED_BLOCK}] {label} in chunks: max_abs_err "
+              f"{err2:.3e} (tol 1e-5), state {serr2:.3e} (tol 1e-3); gain reduction up to "
+              f"{sk2['current_gr_db'].max().item():.1f} dB", flush=True)
+        check(np.isfinite(err2) and err2 <= 1e-5 and serr2 <= 1e-3 and gr_err2 <= 1e-3,
+              f"compressor_scan disagrees with its plain twin over {CHUNKED_BLOCK}-sample blocks")
+        err = max(err, err2)
         times = kernel_times(lambda: comp.compressor_scan(*args))
         plain_ms = cuda_ms(lambda: comp.compressor_scan_plain(*args), 1)
         # ~70 f32 operations per sample (log10f, powf and sqrtf counted once)
@@ -526,6 +563,23 @@ def phase2_gate(res: Results) -> None:
         ops = (35 if cfg.mode == gate.THRESHOLD_ONLY else 80) * n_elem
         res.report("gate_scan", err, 1e-4, times, plain_ms, f"[{FLEET}, {BLOCK}] {name}",
                    8 * n_elem + FLEET * 4 * 2 * 18, f32_ops=ops)
+        # from the final state, two blocks as one that runs as two
+        # shared-memory chunks
+        x_long = torch.cat([blocks[0][0], blocks[1][0]], dim=1).contiguous()
+        long_args = (cfg, st, x_long, *vad, p)
+        sk, yk, _ = gate.gate_process(*long_args)
+        sp, yp, _ = gate.gate_process_plain(*long_args)
+        stream_err = (yk - yp).abs().amax(dim=1)
+        apart = stream_err > 1e-4
+        for k in gate.INT_KEYS:
+            apart |= sk[k] != sp[k]
+        print(f"[2] gate_scan [{FLEET}, {CHUNKED_BLOCK}] {name} in chunks: "
+              f"{int(apart.sum())} of {FLEET} streams diverged from the plain twin (tol "
+              f"0.1 %), max_abs_err of the others "
+              f"{float(torch.where(apart, 0.0, stream_err).max()):.3e}", flush=True)
+        check(int(apart.sum()) <= FLEET // 1000,
+              f"gate_scan ({name}) disagrees with its plain twin over {CHUNKED_BLOCK}-sample "
+              "blocks")
 
 
 def deesser_inputs(auto: bool):
@@ -631,6 +685,42 @@ def phase2_cleanup(res: Results) -> None:
                    f"[{FLEET}, {BLOCK}] {name}, window ends at t=200, crossfade in flight",
                    8 * n_elem + FLEET * (4 * (8 + 20 + 10) + 8 * 8 * 2),
                    f32_ops=20 * n_elem, f64_ops=f64_ops)
+
+
+def phase2_torch_stages(card: str) -> None:
+    """Information: the time per call, at the serving shapes, of the three
+    block-level stages that are vectorised torch with no kernel of their own
+    yet, with their calls per block: eager (CUDA events around back-to-back
+    calls, the host's launch cost included) and on the card alone (a CUDA
+    graph of the calls, replayed)."""
+    from audioforge_tpu_torch.ops import limiter, routing, scan, true_peak
+
+    rng = np.random.default_rng(23)
+    W = limiter.LimiterConfig().lookahead_samples
+    ext = torch.tensor(rng.standard_normal((FLEET, W + BLOCK)).astype(np.float32),
+                       device=DEVICE).abs()
+    tp_ext = torch.tensor(rng.standard_normal((FLEET, true_peak._H + BLOCK)).astype(np.float32),
+                          device=DEVICE)
+    xb = torch.tensor(mic_capture(FLEET, 1, 24), device=DEVICE)
+    st = routing.routing_init(routing.RoutingConfig(cleanup_mode=routing.CLEANUP_STRONG),
+                              n=FLEET, device=torch.device(DEVICE))
+    omegas = routing._bank_omegas(FS, xb.device)
+    boundary = torch.full((FLEET,), 200, dtype=torch.int32, device=DEVICE)
+    stages = (
+        (f"limiter window max, ops/scan.py sliding_window_max [{FLEET}, {W} + {BLOCK}] "
+         f"window {W + 1}", "1 per block",
+         lambda: scan.sliding_window_max(ext, W + 1)[:, W:]),
+        (f"true-peak 4x32 polyphase FIR, ops/true_peak.py _interp_peaks [{FLEET}, "
+         f"{true_peak._H} + {BLOCK}]", "3 per block (input detector, limiter in and out)",
+         lambda: true_peak._interp_peaks(tp_ext, BLOCK)),
+        (f"hum oscillator bank, ops/routing.py _hum_bank [{FLEET}, {BLOCK}] x 26 bins",
+         "1 per full-chain block, 0 on the default path",
+         lambda: routing._hum_bank(st["bin_phase"], omegas, boundary, xb)),
+    )
+    for name, calls, fn in stages:
+        device_ms, eager_ms = kernel_times(fn)
+        print(f"[2] torch stage (info, {card}): {name}: eager {eager_ms:.4f} ms per call, "
+              f"{device_ms:.4f} ms on the card; {calls}", flush=True)
 
 
 def timed_calls():
@@ -904,6 +994,12 @@ def phase6_profile(card: str) -> None:
         for e in rows[:8]:
             print(f"    {e.self_device_time_total / 3e3:8.3f} ms/step {e.count // 3:6d}x  "
                   f"{e.key[:90]}")
+        own = [e for e in rows if any(f"{name}_kernel" in e.key for name in SOURCES)]
+        print(f"[6] {name}: the hand-written kernels alone (without their wrappers' tensor "
+              f"ops), {sum(e.self_device_time_total for e in own) / 3e3:.3f} ms per step:")
+        for e in own:
+            print(f"    {e.self_device_time_total / 3e3:8.4f} ms/step {e.count // 3:6d}x  "
+                  f"{e.key[:60]}")
 
 
 def main() -> int:
@@ -914,6 +1010,7 @@ def main() -> int:
     phase2_gate(res)
     phase2_deesser(res)
     phase2_cleanup(res)
+    phase2_torch_stages(card)
     phase3_default(card)
     counts = phase4_full_chain(card)
     phase5_card_vs_cpu()
