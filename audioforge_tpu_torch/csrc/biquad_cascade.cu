@@ -35,7 +35,7 @@
 // branch-free (selects commit a lane's result only where its sample lies in
 // the chunk); a warp with a crossfade in flight runs both crossfade lanes of
 // every section and computes the weights of 4 steps together ahead of them
-// (bq_quotient: a multiply and two FMAs in place of an f64 division, which
+// (afk_quotient: a multiply and two FMAs in place of an f64 division, which
 // cost 2.3x the crossfade's time), a warp without one (the steady state)
 // runs lane 0 alone. Only the shuffle and the DFMA chain lie between one step and the
 // next.
@@ -81,16 +81,6 @@ AFK_HD void bq_lane_load(BiquadLane& L, const float* c, const double* z,
     L.rcp = 1.0 / L.span;
 }
 
-// n / d correctly rounded, as the division rounds it, from rcp = 1 / d
-// rounded: n * rcp lies within about an ulp of the quotient and one FMA
-// correction rounds it (Markstein). Checked bit for bit against the
-// division for every integer d up to 4096 (the longest crossfade) and n up
-// to d + 4096 by tests/test_torch_kernel_host.py.
-AFK_HD double bq_quotient(double n, double d, double rcp) {
-    const double q = n * rcp;
-    return fma(fma(-q, d, n), rcp, q);
-}
-
 // The crossfade weights of section lane s for the steps k0 .. k0+3 of a
 // chunk that starts at block index c0 (step k filters sample c0 + k - s).
 // An idle section never blends; its weights are left at 1.
@@ -102,7 +92,7 @@ AFK_HD void bq_group_weights(const BiquadLane& L, int k0, int s, int c0,
     const double n0 = L.done + (double)(c0 + k0 - s);
 #pragma unroll
     for (int j = 0; j < BQ_GROUP; ++j)
-        w[j] = fmin(fmax(bq_quotient(n0 + (double)j, L.span, L.rcp), 0.0), 1.0);
+        w[j] = fmin(fmax(afk_quotient(n0 + (double)j, L.span, L.rcp), 0.0), 1.0);
 }
 
 // Step k of a chunk's wavefront for section lane s (`on`: the lane holds a

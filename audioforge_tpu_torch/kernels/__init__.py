@@ -47,14 +47,19 @@ NVCC_FLAGS = (
 # Sources built with -fmad=false: every product and sum rounds on its own, as
 # the plain twins' elementwise ops round them. These kernels compare smoothed
 # levels with thresholds, and a contracted FMA would move a level by an ulp
-# and flip a decision.
-NO_FMA_SOURCES = ("cleanup_scan.cu", "deesser_scan.cu", "gate_scan.cu")
+# and flip a decision (the limiter form of max_affine_scan compares its target
+# with the gain of the sample before).
+NO_FMA_SOURCES = ("cleanup_scan.cu", "deesser_scan.cu", "gate_scan.cu",
+                  "max_affine_scan.cu")
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # kernel name -> (C entry point, argtypes); every entry returns cudaError_t
 KERNELS = {
     "env_scan": ("afk_env_scan", (_P, _P, _P, _P, _I, _I, _P)),
     "max_affine_scan": ("afk_max_affine_scan", (_P, _P, _P, _P, _P, _I, _I, _P)),
+    "limiter_gain_scan": (
+        "afk_limiter_gain_scan",
+        (_P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _P)),
     "biquad_cascade": (
         "afk_biquad_cascade", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "compressor_scan": (
@@ -68,7 +73,7 @@ KERNELS = {
         "afk_deesser_scan", (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P)),
     "cleanup_scan": (
         "afk_cleanup_scan",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _D, _P)),
+        (_P,) * 12 + (_I, _I, _F, _F, _F, _I, _I, _D, _P)),
 }
 
 # launches per kernel since the last reset, counted where the kernel launches

@@ -2,8 +2,9 @@
 
 Decision peak over the (W+1)-sample window ``[t-W, t]``, target gain
 ``ceiling / peak`` above the ceiling, instant attack and one-pole release as
-the max-affine recurrence on the gain deficit ``u = 1 - g`` (the
-``max_affine_scan`` kernel on the card), W-sample delay, hard clamp.
+the max-affine recurrence on the gain deficit ``u = 1 - g``, W-sample delay,
+hard clamp: everything after the window max is one
+:func:`~.scan.limiter_gain_scan` call (one kernel launch on the card).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from dataclasses import dataclass
 import torch
 
 from . import util
-from .scan import max_affine_scan, sliding_window_max
+from .scan import limiter_gain_scan, sliding_window_max
 
 __all__ = ["LimiterConfig", "limiter_init", "limiter_params", "limiter_process"]
 
@@ -61,24 +62,18 @@ def limiter_process(config: LimiterConfig, state, x, params):
     if not config.enabled:
         return state, x, {"peak_gr_db": torch.zeros_like(state["gain"])}
     W = config.lookahead_samples
-    ceiling = params["ceiling_linear"][:, None]
-    rc = params["release_coeff"]
     ext = torch.cat([state["history"], x], dim=-1)
     peak = sliding_window_max(ext.abs(), W + 1)[:, W:]
-    target = torch.where(peak > ceiling,
-                         ceiling / torch.clamp_min(peak, 1e-30), 1.0)
-    v = 1.0 - target
-    u = max_affine_scan(v.contiguous(), rc, ((1.0 - rc)[:, None] * v).contiguous(),
-                        (1.0 - state["gain"]).contiguous())
-    gain = 1.0 - u
-    y = torch.clamp(ext[:, :x.shape[-1]] * gain, -ceiling, ceiling)
-    min_gain = gain.amin(dim=-1)
+    # the delayed input is the history-extended block's first T samples
+    y, gain_last, min_gain, _ = limiter_gain_scan(
+        peak, ext[:, :x.shape[-1]], params["ceiling_linear"], params["release_coeff"],
+        state["gain"], 1.0)
     block_gr_db = torch.where(
         min_gain < 1.0,
         -util.linear_to_db(torch.clamp_min(min_gain, 1e-10)), 0.0)
     new_state = {
         "history": ext[:, -W:].contiguous(),
-        "gain": gain[:, -1].contiguous(),
+        "gain": gain_last,
         "peak_gr_db": torch.maximum(state["peak_gr_db"], block_gr_db),
     }
     return new_state, y, {"peak_gr_db": block_gr_db}

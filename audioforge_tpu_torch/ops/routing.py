@@ -485,29 +485,29 @@ def _cleanup_launch(config: RoutingConfig, state, ctx, x):
     iin = torch.stack([state["rumble_hold"]]
                       + [ctx[k] for k in _SCAN_INT_KEYS[1:8]]
                       + [state[k]["fade_remaining"] for k in _NOTCHES]).to(torch.int32)
-    coeffs = torch.cat([state[k]["coeffs"].reshape(-1, 10) for k in _NOTCHES],
-                       dim=1).t().contiguous()
-    zin = torch.cat([state[k]["z"].reshape(-1, 4) for k in _NOTCHES],
-                    dim=1).t().contiguous()
     kernels.check_tensor("cleanup_scan x", x, torch.float32, (n, T), dev)
     kernels.check_tensor("cleanup_scan float state", fin, torch.float32,
                          (len(_SCAN_FLOAT_KEYS), n), dev)
-    kernels.check_tensor("cleanup_scan coeffs", coeffs, torch.float32, (20, n), dev)
-    kernels.check_tensor("cleanup_scan z", zin, torch.float64, (8, n), dev)
     kernels.check_tensor("cleanup_scan int state", iin, torch.int32,
                          (len(_SCAN_INT_KEYS), n), dev)
+    # the kernel reads and writes the notches' leaves in their own layout
+    for key in _NOTCHES:
+        kernels.check_tensor(f"cleanup_scan {key} coeffs", state[key]["coeffs"],
+                             torch.float32, (n, 2, 5), dev)
+        kernels.check_tensor(f"cleanup_scan {key} z", state[key]["z"], torch.float64,
+                             (n, 2, 2), dev)
     y = torch.empty_like(x)
     fout = torch.empty((6, n), dtype=torch.float32, device=dev)
-    zout = torch.empty_like(zin)
+    zout = [torch.empty_like(state[key]["z"]) for key in _NOTCHES]
     iout = torch.empty((1, n), dtype=torch.int32, device=dev)
-    kernels.launch("cleanup_scan", x.data_ptr(), fin.data_ptr(), coeffs.data_ptr(),
-                   zin.data_ptr(), iin.data_ptr(), y.data_ptr(), fout.data_ptr(),
-                   zout.data_ptr(), iout.data_ptr(), n, T, *_scan_consts(config),
-                   kernels.stream_of(dev))
+    kernels.launch("cleanup_scan", x.data_ptr(), fin.data_ptr(),
+                   *(state[key]["coeffs"].data_ptr() for key in _NOTCHES),
+                   *(state[key]["z"].data_ptr() for key in _NOTCHES), iin.data_ptr(),
+                   y.data_ptr(), fout.data_ptr(), *(z.data_ptr() for z in zout),
+                   iout.data_ptr(), n, T, *_scan_consts(config), kernels.stream_of(dev))
     out = dict(zip(_SCAN_FLOAT_KEYS, fout.unbind(0)))
     out["rumble_hold"] = iout[0]
-    z = zout.t().reshape(n, 2, 2, 2)
-    out["hum_notch"], out["harmonic_notch"] = z[:, 0], z[:, 1]
+    out["hum_notch"], out["harmonic_notch"] = zout
     return out, y
 
 

@@ -2,10 +2,16 @@
 
 Counterpart of ``audioforge_tpu/ops/scan.py:299-370``. The TPU evaluated
 these as blocked associative scans; on the GPU a recurrence is a loop inside
-a hand-written kernel, one stream per thread (``csrc/max_affine_scan.cu``).
+a hand-written kernel over a shared-memory tile of the block, one lane per
+stream (``csrc/max_affine_scan.cu``).
 
 :func:`max_affine_scan` launches that kernel for a CUDA tensor and runs its
 plain PyTorch twin :func:`max_affine_scan_plain` for a CPU tensor.
+:func:`limiter_gain_scan` is the form both limiters call: the same recurrence
+with the target gain before it and the gain, the clamped output and the
+block's gain statistics after it, one kernel launch on the card
+(``limiter_gain_scan`` in the same source) and
+:func:`limiter_gain_scan_plain` on the CPU.
 :func:`sliding_window_max` and :func:`one_pole_scan` are plain PyTorch.
 """
 
@@ -16,6 +22,8 @@ import torch
 from .. import kernels
 
 __all__ = [
+    "limiter_gain_scan",
+    "limiter_gain_scan_plain",
     "max_affine_scan",
     "max_affine_scan_plain",
     "one_pole_scan",
@@ -58,6 +66,61 @@ def max_affine_scan(v, rho, c, u0):
                    rho.data_ptr(), u0.data_ptr(), u.data_ptr(), n, T,
                    kernels.stream_of(v.device))
     return u
+
+
+def limiter_gain_scan_plain(peak, xd, ceiling, rc, gain0, scale):
+    """Plain PyTorch twin of :func:`limiter_gain_scan`."""
+    ceil = ceiling[:, None]
+    target = torch.where(
+        peak > ceil,
+        torch.clamp(ceil * scale / torch.clamp_min(peak, 1e-30), 0.0, 1.0), 1.0)
+    v = 1.0 - target
+    u = max_affine_scan_plain(v, rc, (1.0 - rc)[:, None] * v, 1.0 - gain0)
+    gain = 1.0 - u
+    y = torch.clamp(xd * gain, -ceil, ceil)
+    g_prev = torch.cat([gain0[:, None], gain[:, :-1]], dim=-1)
+    events = (target < g_prev).any(dim=-1).to(torch.int32)
+    return y, gain[:, -1].contiguous(), gain.amin(dim=-1), events
+
+
+def limiter_gain_scan(peak, xd, ceiling, rc, gain0, scale):
+    """The gain stage of a limiter over a block: instant attack to
+    ``target = ceiling * scale / peak`` (clipped to [0, 1]) where the decision
+    peak lies above the ceiling, one-pole release by ``rc`` as the max-affine
+    recurrence on ``1 - gain`` from ``gain0``, the delayed input times the
+    gain, clamped to the ceiling.
+
+    ``peak, xd: f32 [N, T]`` (rows may be windows of a longer row: unit
+    stride along T, any row pitch); ``ceiling, rc, gain0: f32 [N]``;
+    ``scale``: a float. Returns ``(y [N, T], gain_last [N], min_gain [N],
+    events [N] int32)``: the gain after the block's last sample, the block's
+    least gain, and 1 where any sample's target lay below the gain of the
+    sample before. :func:`limiter_gain_scan_plain` on CPU tensors; the
+    ``limiter_gain_scan`` CUDA kernel on CUDA tensors."""
+    if peak.device.type == "cpu":
+        return limiter_gain_scan_plain(peak, xd, ceiling, rc, gain0, scale)
+    if peak.device.type != "cuda":
+        raise ValueError(f"limiter_gain_scan: unsupported device {peak.device}")
+    n, T = peak.shape
+    dev = peak.device
+    for name, t in (("peak", peak), ("xd", xd)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (n, T) or t.device != dev
+                or t.stride(1) != 1 or t.stride(0) < T):
+            raise ValueError(
+                f"limiter_gain_scan {name}: expected f32 {(n, T)} on {dev} with unit "
+                f"stride along T, got {t.dtype} {tuple(t.shape)} on {t.device} with "
+                f"strides {t.stride()}")
+    for name, t in (("ceiling", ceiling), ("rc", rc), ("gain0", gain0)):
+        kernels.check_tensor(f"limiter_gain_scan {name}", t, torch.float32, (n,), dev)
+    y = torch.empty((n, T), dtype=torch.float32, device=dev)
+    gain_last = torch.empty(n, dtype=torch.float32, device=dev)
+    min_gain = torch.empty_like(gain_last)
+    events = torch.empty(n, dtype=torch.int32, device=dev)
+    kernels.launch("limiter_gain_scan", peak.data_ptr(), peak.stride(0), xd.data_ptr(),
+                   xd.stride(0), ceiling.data_ptr(), rc.data_ptr(), gain0.data_ptr(),
+                   float(scale), y.data_ptr(), gain_last.data_ptr(), min_gain.data_ptr(),
+                   events.data_ptr(), n, T, kernels.stream_of(dev))
+    return y, gain_last, min_gain, events
 
 
 def one_pole_scan(x, coeff, y0):

@@ -4,8 +4,9 @@ Counterpart of ``audioforge_tpu/ops/true_peak.py``: a 127-tap Kaiser
 (beta 10) interpolator split into 4 polyphase branches of 32 taps; the
 per-sample estimate is the max of |x| and the 4 interpolated |values|. The
 FIR is plain tensor code (``unfold`` of the history-extended block times a
-``[32, 4]`` coefficient matrix); the limiter's release recurrence is the
-``max_affine_scan`` kernel on the card.
+``[32, 4]`` coefficient matrix); the limiter's gain stage (target gain,
+release recurrence, delayed input times gain, clamp, gain statistics) is one
+:func:`~.scan.limiter_gain_scan` call (one kernel launch on the card).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from . import util
-from .scan import max_affine_scan
+from .scan import limiter_gain_scan
 
 __all__ = [
     "PHASES", "TAPS_PER_PHASE", "LIMITER_LOOKAHEAD_SAMPLES",
@@ -125,38 +126,30 @@ def tp_limiter_init(*, n: int, device) -> dict:
 def tp_limiter_process(config: TruePeakLimiterConfig, state, x, ceiling_linear):
     """Final safety limiting of ``x: f32 [N, T]`` at the per-stream
     ``ceiling_linear [N]``. Returns ``(new_state, y, stats)``."""
-    ceiling = ceiling_linear[:, None]
     rc = torch.full_like(ceiling_linear, config.release_coeff)
     x = _scrub(x)
     T = x.shape[-1]
     in_ext = torch.cat([state["in_hist"], x], dim=-1)
     itp = _interp_peaks(in_ext, T)
-    target = torch.where(
-        itp > ceiling,
-        torch.clamp(ceiling * 0.999 / torch.clamp_min(itp, 1e-30), 0.0, 1.0),
-        1.0)
-    v = 1.0 - target
-    u = max_affine_scan(v.contiguous(), rc, ((1.0 - rc)[:, None] * v).contiguous(),
-                        (1.0 - state["gain"]).contiguous())
-    gain = 1.0 - u
     dly_ext = torch.cat([state["delay"], x], dim=-1)
-    y = torch.clamp(dly_ext[:, :T] * gain, -ceiling, ceiling)
+    # the target stops 0.1 % under the ceiling; the delayed input is the
+    # delay-extended block's first T samples
+    y, gain_last, min_gain, events = limiter_gain_scan(
+        itp, dly_ext[:, :T], ceiling_linear, rc, state["gain"], 0.999)
     y = _scrub(y)
     out_ext = torch.cat([state["out_hist"], y], dim=-1)
     otp = _interp_peaks(out_ext, T)
-    min_gain = gain.amin(dim=-1)
     gr_db = torch.where(min_gain < 1.0,
                         -util.linear_to_db(torch.clamp_min(min_gain, 1e-10)), 0.0)
-    g_prev = torch.cat([state["gain"][:, None], gain[:, :-1]], dim=-1)
     stats = {
-        "limited_events": (target < g_prev).any(dim=-1).to(torch.int32),
+        "limited_events": events,
         "input_true_peak": itp.amax(dim=-1),
         "output_true_peak": otp.amax(dim=-1),
         "max_gain_reduction_db": gr_db,
     }
     new_state = {
         "delay": dly_ext[:, -LIMITER_LOOKAHEAD_SAMPLES:].contiguous(),
-        "gain": gain[:, -1].contiguous(),
+        "gain": gain_last,
         "peak_gr_db": torch.maximum(state["peak_gr_db"], gr_db),
         "in_hist": in_ext[:, -_H:].contiguous(),
         "out_hist": out_ext[:, -_H:].contiguous(),

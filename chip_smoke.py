@@ -7,7 +7,8 @@ of which stops the script with a non-zero exit when it fails:
    versions; no CUDA device is a failure (there is no CPU path);
 1. build: compiles the CUDA kernels under audioforge_tpu_torch/csrc/ and
    prints ptxas's registers and spills; a spill in biquad_cascade,
-   deesser_scan, compressor_scan or gate_scan fails;
+   deesser_scan, compressor_scan, gate_scan, cleanup_scan, max_affine_scan
+   or limiter_gain_scan fails;
 2. kernels: each kernel against its plain PyTorch twin on the card, at the
    shapes the serving path gives it, with its time on the card (a CUDA
    graph of the wrapper call, replayed), the eager call's and the plain
@@ -17,10 +18,15 @@ of which stops the script with a non-zero exit when it fails:
    flight and idle), with its time per block weighted by the launches of
    each section count, and checked at 1 and 10 sections on blocks long
    enough that the kernel runs them in several shared-memory chunks, as are
-   compressor_scan (also without the sidechain high-pass) and gate_scan
-   (every mode) on blocks of 960 samples; then, as information, the eager
-   time per call of the three block-level torch stages that have no kernel
-   yet (limiter window max, true-peak polyphase FIR, hum oscillator bank);
+   compressor_scan (also without the sidechain high-pass), gate_scan
+   (every mode), cleanup_scan, max_affine_scan and limiter_gain_scan on
+   blocks of 960 samples; cleanup_scan gentle and strong with the notches'
+   crossfades in flight and strong with none, the rumble trigger firing on
+   the quarter of the streams that carry a low thump; limiter_gain_scan on
+   lookahead-limiter- and true-peak-limiter-shaped inputs; then, as
+   information, the time per call of both limiter stages and of the three
+   block-level torch stages that have no kernel yet (limiter window max,
+   true-peak polyphase FIR, hum oscillator bank);
 3. default path: the serving engine at fleet 1024 (RNNoise + default live
    chain) through one warm-up step, then 5 x step() and step_many(10) with
    the launch counts read over those 15 blocks: finite output within the
@@ -66,8 +72,9 @@ ENV_BLOCKS = 50             # env_scan blocks per run (the tool's 50 blocks)
 GATE_BLOCKS = 30            # gate_scan blocks per mode
 # kernels whose lane state must fit in registers (phase [1] fails on a spill)
 NO_SPILL_KERNELS = ("biquad_cascade_kernel", "deesser_scan_kernel",
-                    "compressor_scan_kernel", "gate_scan_kernel")
-CHUNKED_BLOCK = 2 * BLOCK   # compressor_scan and gate_scan run it as two chunks
+                    "compressor_scan_kernel", "gate_scan_kernel", "cleanup_scan_kernel",
+                    "max_affine_scan_kernel", "limiter_gain_scan_kernel")
+CHUNKED_BLOCK = 2 * BLOCK   # every tiled kernel but biquad_cascade runs it as two chunks
 
 
 def fail(msg: str) -> None:
@@ -393,16 +400,69 @@ def env_run(fn, xs, env0):
     return torch.stack(ys), env
 
 
-def max_affine_inputs():
-    """``(v, rho, c, u0)`` as the lookahead limiter gives them, [1024, 480]."""
+def max_affine_inputs(T: int = BLOCK):
+    """``(v, rho, c, u0)`` as the lookahead limiter gives them, [1024, T]."""
     rng = np.random.default_rng(10)
-    target = torch.tensor(rng.uniform(0.5, 1.0, (FLEET, BLOCK)).astype(np.float32),
+    target = torch.tensor(rng.uniform(0.5, 1.0, (FLEET, T)).astype(np.float32),
                           device=DEVICE)
     target = torch.where(target > 0.8, torch.ones_like(target), target)
     v = (1.0 - target).contiguous()
     rho = torch.full((FLEET,), float(np.exp(-1.0 / (0.05 * FS))), device=DEVICE)
     c = ((1.0 - rho)[:, None] * v).contiguous()
     return v, rho, c, torch.rand(FLEET, device=DEVICE)
+
+
+def limiter_stage_inputs(kind: str):
+    """``(process, args)``: ``limiter_process`` or ``tp_limiter_process``
+    (``kind`` "limiter" or "true-peak") at fleet 1024 with the serving
+    defaults, its state warmed over one block of speech with transients over
+    the ceiling, and the arguments for the next block."""
+    from audioforge_tpu_torch.ops import limiter, true_peak, util
+
+    x = torch.tensor(1.5 * speech_like(FLEET, 2, 25), device=DEVICE)
+    x0, xb = x[:, :BLOCK].contiguous(), x[:, BLOCK:].contiguous()
+    if kind == "limiter":
+        cfg = limiter.LimiterConfig()
+        params = {k: torch.full((FLEET,), float(np.float32(v)), device=DEVICE)
+                  for k, v in limiter.limiter_params(cfg).items()}
+        st, _, _ = limiter.limiter_process(
+            cfg, limiter.limiter_init(cfg, n=FLEET, device=DEVICE), x0, params)
+        return limiter.limiter_process, (cfg, st, xb, params)
+    cfg = true_peak.TruePeakLimiterConfig()
+    ceiling = torch.full((FLEET,), float(np.float32(util.db_to_linear(cfg.ceiling_db))),
+                         device=DEVICE)
+    st, _, _ = true_peak.tp_limiter_process(
+        cfg, true_peak.tp_limiter_init(n=FLEET, device=DEVICE), x0, ceiling)
+    return true_peak.tp_limiter_process, (cfg, st, xb, ceiling)
+
+
+def _call_args(mod, name: str, drive):
+    """The arguments ``mod.name`` was last called with while ``drive()`` ran."""
+    captured = {}
+    run = getattr(mod, name)
+
+    def spy(*args):
+        captured["args"] = args
+        return run(*args)
+
+    setattr(mod, name, spy)
+    try:
+        drive()
+    finally:
+        setattr(mod, name, run)
+    return captured["args"]
+
+
+def limiter_gain_inputs(kind: str, T: int = BLOCK):
+    """The arguments ``limiter_process`` ("limiter") or ``tp_limiter_process``
+    ("true-peak") gives ``limiter_gain_scan`` on :func:`limiter_stage_inputs`,
+    the block repeated to ``T`` samples."""
+    from audioforge_tpu_torch.ops import limiter, true_peak
+
+    process, args = limiter_stage_inputs(kind)
+    args = (*args[:2], args[2].repeat(1, T // BLOCK), *args[3:])
+    return _call_args(limiter if kind == "limiter" else true_peak, "limiter_gain_scan",
+                      lambda: process(*args))
 
 
 def compressor_inputs():
@@ -428,9 +488,8 @@ def compressor_inputs():
 
 
 def phase2_pr1_kernels(res: Results) -> None:
-    from audioforge_tpu_torch.ops import envelope, scan
+    from audioforge_tpu_torch.ops import envelope
 
-    n_elem = FLEET * BLOCK
     xs, env0 = env_inputs()
     B = xs.shape[2]
     yk, ek = env_run(envelope.env_scan, xs, env0)
@@ -443,15 +502,79 @@ def phase2_pr1_kernels(res: Results) -> None:
     res.report("env_scan", err, 1e-5, times, plain_ms,
                f"[{BLOCK}, {B}] x {ENV_BLOCKS} blocks", 8 * BLOCK * B, f32_ops=8 * BLOCK * B)
 
+    phase2_max_affine(res)
+    phase2_limiters(res)
+    phase2_biquad(res)
+    phase2_compressor(res)
+
+
+def phase2_max_affine(res: Results) -> None:
+    """max_affine_scan on :func:`max_affine_inputs`, also over a block that
+    runs as two shared-memory chunks."""
+    from audioforge_tpu_torch.ops import scan
+
+    n_elem = FLEET * BLOCK
     args = max_affine_inputs()
     err = (scan.max_affine_scan(*args) - scan.max_affine_scan_plain(*args)).abs().max().item()
     times = kernel_times(lambda: scan.max_affine_scan(*args))
     plain_ms = cuda_ms(lambda: scan.max_affine_scan_plain(*args), 2)
-    res.report("max_affine_scan", err, 1e-5, times, plain_ms, f"[{FLEET}, {BLOCK}]",
+    long_args = max_affine_inputs(CHUNKED_BLOCK)
+    err2 = (scan.max_affine_scan(*long_args)
+            - scan.max_affine_scan_plain(*long_args)).abs().max().item()
+    print(f"[2] max_affine_scan [{FLEET}, {CHUNKED_BLOCK}] in chunks: max_abs_err {err2:.3e} "
+          "(tol 1e-5)", flush=True)
+    check(np.isfinite(err2) and err2 <= 1e-5,
+          f"max_affine_scan disagrees with its plain twin over {CHUNKED_BLOCK}-sample blocks")
+    res.report("max_affine_scan", max(err, err2), 1e-5, times, plain_ms, f"[{FLEET}, {BLOCK}]",
                12 * n_elem, f32_ops=3 * n_elem)
 
-    phase2_biquad(res)
-    phase2_compressor(res)
+
+def _limiter_gain_err(args):
+    """limiter_gain_scan against its plain twin on ``args``: the largest
+    difference over y, the last and the least gain, and the streams whose
+    limited-events flags differ."""
+    from audioforge_tpu_torch.ops import scan
+
+    yk, lastk, mink, evk = scan.limiter_gain_scan(*args)
+    yp, lastp, minp, evp = scan.limiter_gain_scan_plain(*args)
+    err = max((yk - yp).abs().max().item(), (lastk - lastp).abs().max().item(),
+              (mink - minp).abs().max().item())
+    return err, int((evk != evp).sum().item()), minp, evp
+
+
+def phase2_limiters(res: Results) -> None:
+    """limiter_gain_scan on :func:`limiter_gain_inputs`, as the lookahead
+    limiter and as the true-peak limiter call it, also over a block that runs
+    as two shared-memory chunks; then the card's time of both limiter stages
+    (window max or polyphase FIR, the kernel, the state's bookkeeping)."""
+    from audioforge_tpu_torch.ops import scan
+
+    n_elem = FLEET * BLOCK
+    for kind in ("limiter", "true-peak"):
+        args = limiter_gain_inputs(kind)
+        err, flags, min_gain, events = _limiter_gain_err(args)
+        err2, flags2, _, _ = _limiter_gain_err(limiter_gain_inputs(kind, CHUNKED_BLOCK))
+        limited = int((min_gain < 1.0).sum().item())
+        print(f"[2] limiter_gain_scan {kind}: gain below 1 on {limited} of {FLEET} streams "
+              f"(least {min_gain.min().item():.3f}), limited events on "
+              f"{int(events.sum().item())}; events flags differ from the twin on {flags} "
+              f"streams; [{FLEET}, {CHUNKED_BLOCK}] in chunks: max_abs_err {err2:.3e} (tol "
+              f"1e-5), flags differ on {flags2}", flush=True)
+        check(limited >= FLEET // 2, f"limiter_gain_scan ({kind}): the inputs hardly limit")
+        check(flags == 0 and flags2 == 0 and np.isfinite(err2) and err2 <= 1e-5,
+              f"limiter_gain_scan ({kind}) disagrees with its plain twin")
+        times = kernel_times(lambda: scan.limiter_gain_scan(*args))
+        plain_ms = cuda_ms(lambda: scan.limiter_gain_scan_plain(*args), 2)
+        # per sample ~16 f32 operations (a division, compares, clips, the
+        # recurrence's multiply, add and max); 8 bytes in, 4 out
+        res.report("limiter_gain_scan", max(err, err2), 1e-5, times, plain_ms,
+                   f"[{FLEET}, {BLOCK}] {kind}", 12 * n_elem + FLEET * 4 * 6,
+                   f32_ops=16 * n_elem)
+    for kind in ("limiter", "true-peak"):
+        process, args = limiter_stage_inputs(kind)
+        device_ms, eager_ms = kernel_times(lambda: process(*args))
+        print(f"[2] stage (info, {res.card}): {process.__name__} [{FLEET}, {BLOCK}]: "
+              f"{device_ms:.4f} ms on the card, eager {eager_ms:.4f} ms per call", flush=True)
 
 
 def phase2_compressor(res: Results) -> None:
@@ -622,67 +745,102 @@ def phase2_deesser(res: Results) -> None:
                    f32_ops=270 * n_elem)
 
 
-def cleanup_inputs(mode: int):
-    """The arguments routing_process gives cleanup_scan in ``mode``: a state
-    whose window ends inside the block, the hum notch retuned to 50.4 Hz with
-    its crossfade in flight."""
+def cleanup_inputs(mode: int, fading: bool = True, T: int = BLOCK):
+    """The arguments routing_process gives cleanup_scan in ``mode`` for a
+    block of ``T`` samples: a state whose window ends 200 samples into the
+    block, both notches retuned (to 50.4 and 100.8 Hz) with their crossfades
+    in flight (``fading``) or idle; the streams of class 3 (every fourth)
+    carry no hum hold and a 45 Hz thump from the block's start, so the rumble
+    trigger fires on them once the window has ended."""
     from audioforge_tpu_torch.ops import routing
 
     dev = torch.device(DEVICE)
-    x = torch.tensor(mic_capture(FLEET, 2, 15), device=dev)
+    audio = mic_capture(FLEET, 1 + T // BLOCK, 15)
+    t = np.arange(T)
+    audio[3::4, BLOCK:] += (0.7 * np.sin(2 * np.pi * 45.0 * t / FS)
+                            * np.minimum(1.0, t / 100.0)).astype(np.float32)
+    x = torch.tensor(audio, device=dev)
     cfg = routing.RoutingConfig(cleanup_mode=mode)
     st = routing.routing_init(cfg, n=FLEET, device=dev)
     # after the first block the window ends 200 samples into the second
     st["window_pos"] = torch.full((FLEET,), cfg.window_samples - 200 - BLOCK,
                                   dtype=torch.int32, device=dev)
     st, _, _ = routing.routing_process(cfg, st, x[:, :BLOCK].contiguous())
-    line = torch.full((FLEET,), 50.4, device=dev)
-    for key, mult in (("hum_notch", 1.0), ("harmonic_notch", 2.0)):
-        st[key] = routing._smooth_notch_retune(st[key], line * mult, FS,
-                                               cfg.notch_fade_samples)
-    st.update(hum_line_hz=line, hum_hold=torch.full_like(st["hum_hold"], 20000),
+    # the tracked line: away from the notches' 55 Hz, so they retune, or on it
+    line = torch.full((FLEET,), 50.4 if fading else 55.0, device=dev)
+    if fading:
+        for key, mult in (("hum_notch", 1.0), ("harmonic_notch", 2.0)):
+            st[key] = routing._smooth_notch_retune(st[key], line * mult, FS,
+                                                   cfg.notch_fade_samples)
+    thump = torch.arange(FLEET, device=dev) % 4 == 3
+    st.update(hum_line_hz=line,
+              hum_hold=torch.where(thump, 0, 20000).to(torch.int32),
+              rumble_hold=(torch.arange(FLEET, device=dev) % 3 * 700).to(torch.int32),
               hum_strength=torch.full_like(line, 0.5),
               harmonic_strength=torch.full_like(line, 0.3))
-    captured = {}
-    run = routing.cleanup_scan
+    return _call_args(routing, "cleanup_scan",
+                      lambda: routing.routing_process(cfg, st, x[:, BLOCK:].contiguous()))
 
-    def spy(*args):
-        captured["args"] = args
-        return run(*args)
 
-    routing.cleanup_scan = spy
-    try:
-        routing.routing_process(cfg, st, x[:, BLOCK:].contiguous())
-    finally:
-        routing.cleanup_scan = run
-    return captured["args"]
+def cleanup_configs():
+    """``(label, mode, fading)`` of the cleanup_scan configurations."""
+    from audioforge_tpu_torch.ops import routing
+
+    return (("gentle", routing.CLEANUP_GENTLE, True), ("strong", routing.CLEANUP_STRONG, True),
+            ("strong idle", routing.CLEANUP_STRONG, False))
+
+
+def _cleanup_err(args, name: str):
+    """cleanup_scan against its plain twin on ``args``: the largest
+    difference of y and of the state; the rumble hold must be equal. Also
+    returns the streams whose rumble trigger fired in the block."""
+    from audioforge_tpu_torch.ops import routing
+
+    ok, yk = routing.cleanup_scan(*args)
+    op, yp = routing.cleanup_scan_plain(*args)
+    check(torch.equal(ok["rumble_hold"], op["rumble_hold"]),
+          f"cleanup_scan {name}: rumble hold differs from the plain twin's")
+    # a hold that stands within a block of its set value was set in the block
+    hold_set, T = routing._scan_consts(args[0])[3], args[3].shape[-1]
+    fired = int((op["rumble_hold"] > hold_set - T).sum().item())
+    return (yk - yp).abs().max().item(), _max_err(ok, op), fired
 
 
 def phase2_cleanup(res: Results) -> None:
-    """cleanup_scan on :func:`cleanup_inputs` in both cleanup modes."""
+    """cleanup_scan on :func:`cleanup_inputs` for every configuration of
+    :func:`cleanup_configs`, also over a block that runs as two shared-memory
+    chunks."""
     from audioforge_tpu_torch.ops import routing
 
     n_elem = FLEET * BLOCK
-    for mode, name in ((routing.CLEANUP_GENTLE, "gentle"), (routing.CLEANUP_STRONG, "strong")):
-        args = cleanup_inputs(mode)
+    for name, mode, fade in cleanup_configs():
+        args = cleanup_inputs(mode, fade)
         check(bool((args[2]["boundary"] == 200).all()), "the window does not end mid-block")
-        check(bool((args[1]["hum_notch"]["fade_remaining"] > 0).all()),
-              "no notch crossfade in flight")
-        ok, yk = routing.cleanup_scan(*args)
-        op, yp = routing.cleanup_scan_plain(*args)
-        err = (yk - yp).abs().max().item()
-        serr = _max_err(ok, op)
-        check(serr <= 1e-5, f"cleanup_scan state disagrees with its plain twin ({serr:.3e})")
-        check(torch.equal(ok["rumble_hold"], op["rumble_hold"]), "cleanup_scan rumble hold")
-        times = kernel_times(lambda: routing.cleanup_scan(*args))
-        plain_ms = cuda_ms(lambda: routing.cleanup_scan_plain(*args), 1)
         fading = sum(int((args[1][k]["fade_remaining"] > 0).sum().item())
                      for k in ("hum_notch", "harmonic_notch"))
+        check(fading == (2 * FLEET if fade else 0), f"cleanup_scan {name}: {fading} notch "
+              "crossfades in flight")
+        err, serr, fired = _cleanup_err(args, name)
+        check(serr <= 1e-5, f"cleanup_scan state disagrees with its plain twin ({serr:.3e})")
+        err2, serr2, fired2 = _cleanup_err(cleanup_inputs(mode, fade, CHUNKED_BLOCK), name)
+        print(f"[2] cleanup_scan {name}: the rumble trigger fired on {fired} of {FLEET} "
+              f"streams, rumble hold equal to the twin's on all; [{FLEET}, {CHUNKED_BLOCK}] in "
+              f"chunks: max_abs_err {err2:.3e}, state {serr2:.3e} (tol 1e-5), fired on {fired2}",
+              flush=True)
+        check(fired == FLEET // 4 and fired2 == FLEET // 4,
+              f"cleanup_scan {name}: the rumble trigger fired on {fired} and {fired2} streams, "
+              f"expected the {FLEET // 4} with a thump")
+        check(np.isfinite(err2) and err2 <= 1e-5 and serr2 <= 1e-5,
+              f"cleanup_scan {name} disagrees with its plain twin over {CHUNKED_BLOCK}-sample "
+              "blocks")
+        times = kernel_times(lambda: routing.cleanup_scan(*args))
+        plain_ms = cuda_ms(lambda: routing.cleanup_scan_plain(*args), 1)
         # f32: ~20 rumble operations per sample; f64: DC blocker (3), two
         # notches' lane 0 and mix (12 each), lane 1 and blend while fading (12)
         f64_ops = BLOCK * (27 * FLEET + 12 * fading)
-        res.report("cleanup_scan", err, 1e-5, times, plain_ms,
-                   f"[{FLEET}, {BLOCK}] {name}, window ends at t=200, crossfade in flight",
+        flight = "crossfades in flight" if fade else "no crossfade in flight"
+        res.report("cleanup_scan", max(err, err2), 1e-5, times, plain_ms,
+                   f"[{FLEET}, {BLOCK}] {name}, window ends at t=200, {flight}",
                    8 * n_elem + FLEET * (4 * (8 + 20 + 10) + 8 * 8 * 2),
                    f32_ops=20 * n_elem, f64_ops=f64_ops)
 
@@ -735,6 +893,16 @@ def timed_calls():
     yield "env_scan", lambda: env_run(envelope.env_scan, xs, env0), 3, ENV_BLOCKS
     args = max_affine_inputs()
     yield "max_affine_scan", lambda: scan.max_affine_scan(*args), 20, 1
+    for kind in ("limiter", "true-peak"):
+        # the whole stage, which every checkout has; the kernel's limiter
+        # form where the checkout has it
+        process, args = limiter_stage_inputs(kind)
+        yield (f"{process.__name__} (stage)",
+               lambda process=process, args=args: process(*args), 20, 1)
+        if hasattr(scan, "limiter_gain_scan"):
+            args = limiter_gain_inputs(kind)
+            yield (f"limiter_gain_scan {kind}",
+                   lambda args=args: scan.limiter_gain_scan(*args), 20, 1)
     xb, shapes = biquad_inputs()
     for name, sections, st in shapes:
         bq = _cascade_args(xb, st)
@@ -752,8 +920,8 @@ def timed_calls():
         args = deesser_inputs(auto)
         yield (f"deesser_scan {'auto' if auto else 'manual'}",
                lambda args=args: deesser.deesser_scan(*args), 20, 1)
-    for mode, name in ((routing.CLEANUP_GENTLE, "gentle"), (routing.CLEANUP_STRONG, "strong")):
-        args = cleanup_inputs(mode)
+    for name, mode, fade in cleanup_configs():
+        args = cleanup_inputs(mode, fade)
         yield f"cleanup_scan {name}", lambda args=args: routing.cleanup_scan(*args), 20, 1
 
 
@@ -820,7 +988,7 @@ def phase3_default(card: str) -> dict:
     counts = dict(kernels.launch_counts)
     print(f"[3] default path, launches over {n_blocks} blocks: {counts}", flush=True)
     peak = _check_output(outs, n_blocks + 1, FLEET)
-    _check_per_block(counts, {"biquad_cascade": 5, "max_affine_scan": 2,
+    _check_per_block(counts, {"biquad_cascade": 5, "limiter_gain_scan": 2,
                               "compressor_scan": 1, "gate_scan": 1}, n_blocks,
                      "default path")
     print(f"[3] output finite, peak {peak:.4f} within the ceiling; seconds per block "
@@ -853,7 +1021,7 @@ def phase4_full_chain(card: str) -> dict:
     counts = dict(kernels.launch_counts)
     print(f"[4] full chain (strong cleanup + de-esser), launches over {FULL_BLOCKS} "
           f"blocks: {counts}", flush=True)
-    _check_per_block(counts, {"biquad_cascade": 5, "max_affine_scan": 2,
+    _check_per_block(counts, {"biquad_cascade": 5, "limiter_gain_scan": 2,
                               "compressor_scan": 1, "gate_scan": 1,
                               "deesser_scan": 1, "cleanup_scan": 1}, FULL_BLOCKS,
                      "full chain")
@@ -953,6 +1121,8 @@ SOURCES = {
                  "tools/evaluate_scan_kernel_strategy.py:72"),
     "max_affine_scan": ("audioforge_tpu_torch/csrc/max_affine_scan.cu",
                         "audioforge_tpu/ops/scan.py:305"),
+    "limiter_gain_scan": ("audioforge_tpu_torch/csrc/max_affine_scan.cu",
+                          "audioforge_tpu/ops/limiter.py:131"),
     "biquad_cascade": ("audioforge_tpu_torch/csrc/biquad_cascade.cu",
                        "audioforge_tpu/ops/biquad.py:346"),
     "compressor_scan": ("audioforge_tpu_torch/csrc/compressor_scan.cu",

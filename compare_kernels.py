@@ -66,8 +66,9 @@ def main() -> int:
         times = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append((label, times))
         print(f"{label} ({root}): {json.dumps(times)}", flush=True)
-    for name in runs[0][1]:
-        med = {lab: sorted(t[name] for lb, t in runs if lb == lab) for lab in ("other", "this")}
+    for name in runs[1][1]:  # a configuration the other checkout lacks shows as []
+        med = {lab: sorted(t[name] for lb, t in runs if lb == lab and name in t)
+               for lab in ("other", "this")}
         print(f"{name}: other {med['other']} ms, this {med['this']} ms", flush=True)
     return 0
 

@@ -1,5 +1,6 @@
 """Host C++ check of the ``biquad_cascade``, ``deesser_scan``,
-``compressor_scan`` and ``gate_scan`` CUDA sources.
+``compressor_scan``, ``gate_scan``, ``cleanup_scan`` and ``max_affine_scan``
+CUDA sources.
 
 The kernels keep each lane's step in ``AFK_HD`` functions (``csrc/afk.cuh``)
 with the ``__global__`` parts under ``__CUDACC__``, so ``g++ -x c++`` builds
@@ -27,8 +28,24 @@ block from the host's own state, against the twin run the same way.
 Tolerances: compressor y 1e-5 and ``current_gr_db`` 1e-3 (f32 libm against
 torch's ``log10``/``pow``); gate: every integer state equal and y within 1e-4
 on all but at most ``GATE_APART_MAX`` stream-blocks, where libm and torch may
-differ by an ulp at a threshold test. Needs ``g++``; without it the tests
-skip with a reason.
+differ by an ulp at a threshold test.
+
+``cleanup_scan`` runs the kernel's two parts over the kernel's tile: the f64
+wavefront (three stages, five lanes a stream, the pending lane's output to
+the notch's first lane within the step, four streams to a warp's vote on
+whether any notch fades) and the rumble detector's phases, the rumble hold
+from the last sample whose trigger fired. 11 streams, gentle and strong, with
+crossfades in flight and idle, the window's boundary inside the block, and
+streams on which the trigger fires and on which it cannot; blocks of 480
+samples (one chunk), 960 (two chunks, the kernel's own split) and 480 in
+chunks of 128. Tolerances: y 1e-6 and the notch state 1e-9 (f64 inside; the
+DC blocker runs in DF2T form, which rounds in another order than the twin's
+``x - x1 + c y1``); the rumble envelopes and the rumble hold equal.
+``max_affine_scan`` and its limiter form ``limiter_gain_scan`` run the same
+way (tile, chunks, serial loop, per-sample phases) on lookahead-limiter- and
+true-peak-limiter-shaped inputs, equal to their twins to the bit.
+
+Needs ``g++``; without it the tests skip with a reason.
 """
 
 import ctypes
@@ -45,6 +62,8 @@ from audioforge_tpu_torch.ops import biquad as tbq
 from audioforge_tpu_torch.ops import compressor as tcomp
 from audioforge_tpu_torch.ops import deesser as tdes
 from audioforge_tpu_torch.ops import gate as tgate
+from audioforge_tpu_torch.ops import routing as troute
+from audioforge_tpu_torch.ops import scan as tscan
 
 N, T, FS = 3, 480, 48000.0
 CHUNKS = [T, 128]
@@ -54,9 +73,11 @@ RUNNER = r"""
 #include <algorithm>
 #include <vector>
 #include "biquad_cascade.cu"
+#include "cleanup_scan.cu"
 #include "compressor_scan.cu"
 #include "deesser_scan.cu"
 #include "gate_scan.cu"
+#include "max_affine_scan.cu"
 
 extern "C" int host_biquad_cascade(const float* x, const float* coeffs,
                                    const double* z_in, const int* fade_total,
@@ -164,14 +185,14 @@ static void host_deesser(const float* x, const float* s_in, float* y, float* s_o
     }
 }
 
-// Weights n / d for which bq_quotient and the division differ, over every
+// Weights n / d for which afk_quotient and the division differ, over every
 // integer d in [1, max_d] and n in [1, d + extra].
 extern "C" long long host_quotient_mismatches(int max_d, int extra) {
     long long bad = 0;
     for (int d = 1; d <= max_d; ++d) {
         const double dd = d, rcp = 1.0 / dd;
         for (int n = 1; n <= d + extra; ++n)
-            bad += bq_quotient((double)n, dd, rcp) != (double)n / dd;
+            bad += afk_quotient((double)n, dd, rcp) != (double)n / dd;
     }
     return bad;
 }
@@ -320,6 +341,195 @@ extern "C" int host_gate_scan(const float* x, const float* params, const float* 
     run(x, params, vad, fs_in, is_in, y, fs_out, is_out, N, T, tc_max, k);
     return 0;
 }
+
+// Steps k0 .. k0+3 of one stream's wavefront: its five lanes in lockstep.
+template <bool FADE, bool CHECK>
+static void host_cleanup_group(CleanupLane* L, double* v, const float* xrow, float* yrow,
+                               int k0, int c0, int tc) {
+    double w[CL_USED_LANES][CL_GROUP];
+    for (int l = 0; l < CL_USED_LANES; ++l) {
+        for (int j = 0; j < CL_GROUP; ++j) w[l][j] = 1.0;
+        if (FADE) cl_group_weights(L[l], k0, cl_lane_stage(l), c0, w[l]);
+    }
+    for (int j = 0; j < CL_GROUP; ++j) {
+        // as __shfl_sync: every lane takes its source's output of the step before
+        double in[CL_USED_LANES], y[CL_USED_LANES];
+        bool valid[CL_USED_LANES];
+        for (int l = 0; l < CL_USED_LANES; ++l) {
+            const int t = k0 + j - cl_lane_stage(l);
+            valid[l] = !CHECK || (t >= 0 && t < tc);
+            in[l] = cl_lane_stage(l) > 0 ? v[cl_lane_source(l)]
+                                         : (double)xrow[std::min(k0 + j, tc - 1)];
+        }
+        for (int l = 0; l < CL_USED_LANES; ++l) y[l] = cl_lane_filter<CHECK>(L[l], in[l], valid[l]);
+        for (int l = 0; l < CL_USED_LANES; ++l) {
+            // as __shfl_down_sync: the next lane's output of this step
+            const double ya = FADE && l + 1 < CL_USED_LANES ? y[l + 1] : y[l];
+            const double out = cl_lane_mix<FADE>(L[l], in[l], y[l], ya, w[l][j]);
+            if (!valid[l]) continue;
+            v[l] = out;
+            if (l == CL_LAST_MIX) yrow[k0 + j - cl_lane_stage(l)] = (float)out;
+        }
+    }
+}
+
+// One thread block's work per group of CL_STREAMS streams: the wavefront and
+// the rumble detector's phases over the kernel's tile and tables. tc_max 0:
+// the chunk the launcher picks.
+extern "C" int host_cleanup_scan(const float* x, const float* fin, const float* hum_c,
+                                 const float* harm_c, const double* hum_z,
+                                 const double* harm_z, const int* iin, float* y, float* fout,
+                                 double* hum_zout, double* harm_zout, int* iout, int N, int T,
+                                 const float* fconsts, const int* iconsts, double dc_coeff,
+                                 int tc_max) {
+    const CleanupConsts k{fconsts[0], fconsts[1], fconsts[2], iconsts[0], iconsts[1], dc_coeff};
+    if (tc_max == 0)
+        tc_max = std::max(afk_tile_chunk(T, KR_ROWS * CL_STREAMS, CL_TILE_SMEM_BYTES), 4);
+    const int stride = afk_tile_stride(tc_max);
+    std::vector<float> tile(KR_ROWS * CL_STREAMS * stride), fs(CF_RUMBLE * CL_STREAMS);
+    std::vector<int> ci(CI_COUNT * CL_STREAMS), t_last(CL_STREAMS);
+    float* tl = tile.data();
+    for (int n0 = 0; n0 < N; n0 += CL_STREAMS) {
+        const int rows = std::min<int>(CL_STREAMS, N - n0);
+        CleanupLane L[CL_STREAMS][CL_USED_LANES];
+        double v[CL_STREAMS][CL_USED_LANES] = {};
+        bool fade[CL_STREAMS / 4] = {};  // as the kernel's warp vote: four streams a warp
+        for (int g = 0; g < rows; ++g) {
+            const long long n = n0 + g;
+            for (int i = 0; i < CI_COUNT; ++i) ci[cl_at(i, g)] = iin[(long long)i * N + n];
+            for (int i = 0; i < CF_RUMBLE; ++i) fs[cl_at(i, g)] = fin[(long long)i * N + n];
+            t_last[g] = -1;
+            for (int l = 0; l < CL_USED_LANES; ++l) {
+                cl_lane_load(L[g][l], l, fin + n, N, hum_c + n * 10, harm_c + n * 10,
+                             hum_z + n * 4, harm_z + n * 4, iin[(long long)CI_FADE_HUM * N + n],
+                             iin[(long long)CI_FADE_HARM * N + n], k);
+                fade[g / 4] = fade[g / 4] || L[g][l].fading;
+            }
+        }
+        for (int c0 = 0; c0 < T; c0 += tc_max) {
+            const int tc = std::min(tc_max, T - c0);
+            for (int g = 0; g < rows; ++g)
+                std::copy(x + (n0 + g) * (long long)T + c0, x + (n0 + g) * (long long)T + c0 + tc,
+                          cl_row(tl, stride, KR_X, g));
+            for (int g = 0; g < rows; ++g) {
+                const float* xrow = cl_row(tl, stride, KR_X, g);
+                float* yrow = cl_row(tl, stride, KR_Y, g);
+                for (int kb = 0; kb < tc + CL_STAGES - 1; kb += CL_GROUP) {
+                    const bool check = !cl_group_steady(kb, tc);
+                    auto* group = fade[g / 4]
+                        ? (check ? host_cleanup_group<true, true> : host_cleanup_group<true, false>)
+                        : (check ? host_cleanup_group<false, true>
+                                 : host_cleanup_group<false, false>);
+                    group(L[g], v[g], xrow, yrow, kb, c0, tc);
+                }
+            }
+            for (int g = 0; g < rows; ++g) {  // A
+                cl_phase_lowpass(tl, stride, g, tc, fs.data(), k);
+                cl_phase_broad(tl, stride, g, tc, fs.data());
+            }
+            for (int g = 0; g < rows; ++g) {  // B
+                cl_phase_low(tl, stride, g, tc, fs.data());
+                cl_phase_slow(tl, stride, g, tc, fs.data());
+            }
+            for (int g = 0; g < rows; ++g)  // C, as the atomicMax
+                for (int t = 0; t < tc; ++t)
+                    if (cl_sample_trigger(tl, stride, g, t, c0 + t, ci.data(), k))
+                        t_last[g] = std::max(t_last[g], c0 + t);
+            for (int g = 0; g < rows; ++g)
+                std::copy(cl_row(tl, stride, KR_Y, g), cl_row(tl, stride, KR_Y, g) + tc,
+                          y + (n0 + g) * (long long)T + c0);
+        }
+        for (int g = 0; g < rows; ++g) {
+            const long long n = n0 + g;
+            for (int i = 0; i < CF_RUMBLE; ++i) fout[(long long)i * N + n] = fs[cl_at(i, g)];
+            iout[n] = cl_rumble_hold_end(ci[cl_at(CI_RUMBLE_HOLD, g)], t_last[g], T,
+                                         k.rumble_hold_set);
+            fout[(long long)CF_DC_X1 * N + n] = x[n * T + T - 1];
+            fout[(long long)CF_DC_Y1 * N + n] = (float)v[g][0];
+            for (int l = 1; l < CL_USED_LANES; ++l)
+                cl_lane_store(L[g][l], (l <= 2 ? hum_zout : harm_zout) + n * 4 + ((l - 1) % 2) * 2);
+        }
+    }
+    return 0;
+}
+
+extern "C" int host_max_affine_scan(const float* v, const float* c, const float* rho,
+                                    const float* u0, float* u, int N, int T, int tc_max) {
+    if (tc_max == 0) tc_max = ma_chunk(T, MR_ROWS);
+    const int stride = afk_tile_stride(tc_max);
+    std::vector<float> tile(MR_ROWS * MA_STREAMS * stride);
+    float* tl = tile.data();
+    for (int n0 = 0; n0 < N; n0 += MA_STREAMS) {
+        const int rows = std::min<int>(MA_STREAMS, N - n0);
+        float carry[MA_STREAMS];
+        for (int g = 0; g < rows; ++g) carry[g] = u0[n0 + g];
+        for (int c0 = 0; c0 < T; c0 += tc_max) {
+            const int tc = std::min(tc_max, T - c0);
+            for (int g = 0; g < rows; ++g) {
+                const long long at = (n0 + g) * (long long)T + c0;
+                std::copy(v + at, v + at + tc, ma_row(tl, stride, MR_V, g));
+                std::copy(c + at, c + at + tc, ma_row(tl, stride, MR_C, g));
+            }
+            for (int g = 0; g < rows; ++g)
+                carry[g] = ma_phase_scan(tl, stride, MR_V, MR_C, g, tc, rho[n0 + g], carry[g]);
+            for (int g = 0; g < rows; ++g)
+                std::copy(ma_row(tl, stride, MR_V, g), ma_row(tl, stride, MR_V, g) + tc,
+                          u + (n0 + g) * (long long)T + c0);
+        }
+    }
+    return 0;
+}
+
+extern "C" int host_limiter_gain_scan(const float* peak, int peak_ld, const float* xd, int xd_ld,
+                                      const float* ceiling, const float* rc, const float* gain0,
+                                      float scale, float* y, float* gain_last, float* min_gain,
+                                      int* events, int N, int T, int tc_max) {
+    if (tc_max == 0) tc_max = ma_chunk(T, LR_ROWS);
+    const int stride = afk_tile_stride(tc_max);
+    std::vector<float> tile(LR_ROWS * MA_STREAMS * stride);
+    float* tl = tile.data();
+    for (int n0 = 0; n0 < N; n0 += MA_STREAMS) {
+        const int rows = std::min<int>(MA_STREAMS, N - n0);
+        float carry[MA_STREAMS], before[MA_STREAMS], least[MA_STREAMS];
+        bool fired[MA_STREAMS] = {};
+        for (int g = 0; g < rows; ++g) {
+            carry[g] = 1.0f - gain0[n0 + g];
+            before[g] = gain0[n0 + g];
+            least[g] = INFINITY;
+        }
+        for (int c0 = 0; c0 < T; c0 += tc_max) {
+            const int tc = std::min(tc_max, T - c0);
+            for (int g = 0; g < rows; ++g) {
+                const float* p = peak + (n0 + g) * (long long)peak_ld + c0;
+                const float* d = xd + (n0 + g) * (long long)xd_ld + c0;
+                std::copy(p, p + tc, ma_row(tl, stride, LR_TARGET, g));
+                std::copy(d, d + tc, ma_row(tl, stride, LR_X, g));
+            }
+            for (int g = 0; g < rows; ++g)  // 1
+                for (int t = 0; t < tc; ++t)
+                    lg_sample_target(tl, stride, g, t, ceiling[n0 + g], scale, rc[n0 + g]);
+            for (int g = 0; g < rows; ++g)  // 2
+                carry[g] = ma_phase_scan(tl, stride, LR_V, LR_C, g, tc, rc[n0 + g], carry[g]);
+            for (int g = 0; g < rows; ++g) {  // 3, the reductions as the warp's
+                for (int t = 0; t < tc; ++t) {
+                    bool event;
+                    least[g] = std::min(least[g], lg_sample_output(tl, stride, g, t, ceiling[n0 + g],
+                                                                   before[g], event));
+                    fired[g] = fired[g] || event;
+                }
+                before[g] = 1.0f - carry[g];
+                std::copy(ma_row(tl, stride, LR_X, g), ma_row(tl, stride, LR_X, g) + tc,
+                          y + (n0 + g) * (long long)T + c0);
+            }
+        }
+        for (int g = 0; g < rows; ++g) {
+            min_gain[n0 + g] = least[g];
+            events[n0 + g] = fired[g];
+            gain_last[n0 + g] = before[g];
+        }
+    }
+    return 0;
+}
 """
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -327,7 +537,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """The four kernel sources built for the host behind the runner."""
+    """The six kernel sources built for the host behind the runner."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the host build of the CUDA sources needs it")
@@ -348,6 +558,13 @@ def host_lib(tmp_path_factory):
     lib.host_compressor_scan.restype = _I
     lib.host_gate_scan.argtypes = (_P,) * 8 + (_I, _I, _I, _P, _P, _I)
     lib.host_gate_scan.restype = _I
+    lib.host_cleanup_scan.argtypes = (_P,) * 12 + (_I, _I, _P, _P, ctypes.c_double, _I)
+    lib.host_cleanup_scan.restype = _I
+    lib.host_max_affine_scan.argtypes = (_P,) * 5 + (_I, _I, _I)
+    lib.host_max_affine_scan.restype = _I
+    lib.host_limiter_gain_scan.argtypes = (
+        (_P, _I, _P, _I, _P, _P, _P, ctypes.c_float) + (_P,) * 4 + (_I, _I, _I))
+    lib.host_limiter_gain_scan.restype = _I
     lib.host_quotient_mismatches.argtypes = (_I, _I)
     lib.host_quotient_mismatches.restype = ctypes.c_longlong
     return lib
@@ -611,3 +828,215 @@ def test_gate_scan_host_build_matches_plain(host_lib, mode, tc):
     assert max(o[0]["hold_remaining"].max() for o in outs) > 0
     if cfg.mode != tgate.THRESHOLD_ONLY:
         assert max(o[0]["auto_relax_remaining"].max() for o in outs) > 0
+
+
+# ---------------------------------------------------------------------------
+# cleanup_scan, max_affine_scan and limiter_gain_scan
+# ---------------------------------------------------------------------------
+
+# (block length, chunk): 0 is the chunk the kernel's launcher picks, which
+# holds 480 samples whole and splits 960 in two
+SHAPES = {"480": (480, 0), "960-two-chunks": (960, 0), "480-chunk128": (480, 128)}
+CLEANUP_MODES = {"gentle": troute.CLEANUP_GENTLE, "strong": troute.CLEANUP_STRONG}
+# streams of _cleanup_inputs on which the rumble trigger fires; on the others
+# a hum hold, a hum candidate or a quiet low band keeps it from firing
+FIRING = (0, 1, 2, 5, 8, 9)
+
+
+def _cleanup_inputs(mode: int, T_block: int, seed: int):
+    """``(cfg, state, ctx, x)`` for ``cleanup_scan_plain`` over NS streams
+    from mid-stream: a voice over hum, with a 45 Hz thump on most streams.
+    The window's boundary lies inside the block. Crossfades: streams 0-3
+    mixed (hum fading on 0 and 2, harmonic on 1 and 2), 4-7 idle (a warp of
+    the kernel without a fade), 8-10 fading on both notches with different
+    progress. The trigger can fire before the boundary only (1), after it
+    only (2), anywhere (0, 5, 8, 9); it is held off by a hum hold (3), a hum
+    candidate (4), too quiet a low band (6, 10) or a fresh detector whose
+    start-up level is not reached (7)."""
+    rng = np.random.default_rng(seed)
+    cfg = troute.RoutingConfig(cleanup_mode=mode)
+    fade_total = cfg.notch_fade_samples
+    t = np.arange(T_block) / FS
+    level = np.ones((NS, 1))
+    level[[6, 10]] = 0.0             # no thump
+    level[7] = 0.4                   # a thump under the start-up level
+    x = (0.08 * np.sin(2 * np.pi * rng.uniform(180, 220, (NS, 1)) * t)
+         + 0.02 * np.sin(2 * np.pi * 50.4 * t + rng.uniform(0, 6, (NS, 1)))
+         + 0.003 * rng.standard_normal((NS, t.size)))
+    x[[6, 10]] *= 0.1
+    x += level * 0.7 * np.sin(2 * np.pi * 45.0 * t) * np.minimum(1.0, np.arange(T_block) / 100.0)
+    x = torch.from_numpy(x.astype(np.float32))
+
+    i32 = lambda v: torch.tensor(np.broadcast_to(v, (NS,)).copy(), dtype=torch.int32)
+    f32 = lambda v: torch.tensor(np.asarray(v, np.float32))
+    boundary = 200
+    hold0 = np.zeros(NS, np.int64)
+    hold_after = np.zeros(NS, np.int64)
+    cand0 = np.zeros(NS, np.int64)
+    cand_new = np.zeros(NS, np.int64)
+    hold_after[1] = 30000            # fires before the boundary only
+    hold0[2] = boundary - 40         # runs out before the boundary; a candidate until it
+    cand0[2] = 1
+    hold0[3], hold_after[3] = 30000, 30000
+    cand0[4], cand_new[4] = 1, 2
+    wobs0 = np.full(NS, 3)
+    wobs0[7] = 0                     # start-up: needs low > 0.45
+    ctx = {"boundary": i32(boundary), "hold0": i32(hold0), "hold_after": i32(hold_after),
+           "cand0": i32(cand0), "cand_new": i32(cand_new), "wobs0": i32(wobs0),
+           "wobs_new": i32(wobs0 + 1)}
+    ctx["wobs_new"][7] = 0
+
+    line = torch.full((NS,), 50.4)
+    state = {
+        "lowpass_state": f32(rng.uniform(-0.05, 0.05, NS)),
+        "low_env": f32(rng.uniform(0.0, 0.03, NS)),
+        "slow_low_env": f32(rng.uniform(0.013, 0.02, NS)),
+        "broadband_env": f32(rng.uniform(0.01, 0.05, NS)),
+        "dc_x1": f32(rng.uniform(-0.1, 0.1, NS)),
+        "dc_y1": f32(rng.uniform(-0.1, 0.1, NS)),
+        "rumble_hold": i32(rng.integers(0, 3) + np.where(np.arange(NS) % 2, 2000, 100)),
+        "hum_strength": f32(rng.uniform(0.2, 0.9, NS)),
+        "harmonic_strength": f32(rng.uniform(0.0, 0.6, NS)),
+    }
+    state["low_env"][7] = 0.0
+    state["lowpass_state"][[6, 10]] *= 0.1
+    fading = {"hum_notch": (0, 2, 8, 9, 10), "harmonic_notch": (1, 2, 8, 9, 10)}
+    for key, mult in (("hum_notch", 1.0), ("harmonic_notch", 2.0)):
+        notch = troute._smooth_notch_init(55.0 * mult, FS, NS, "cpu")
+        notch["z"] = torch.from_numpy(1e-2 * rng.standard_normal((NS, 2, 2)))
+        notch["z"][:, 1] = notch["z"][:, 0]
+        on = torch.zeros(NS, dtype=torch.bool)
+        on[list(fading[key])] = True
+        target = torch.where(on, line * mult, notch["pending_freq"])
+        notch = troute._smooth_notch_retune(notch, target, FS, fade_total)
+        # crossfades at different progress: ending in the block, in its
+        # second half (960) and after it
+        left = torch.tensor(rng.integers(1, fade_total + 1, NS), dtype=torch.int32)
+        left[8], left[9] = 150, 700
+        notch["fade_remaining"] = torch.where(on, left, 0).to(torch.int32)
+        notch["z"][:, 1] = torch.where(on[:, None], 1e-3, notch["z"][:, 1])
+        state[key] = notch
+    return cfg, state, ctx, x
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("mode", list(CLEANUP_MODES))
+def test_cleanup_scan_host_build_matches_plain(host_lib, mode, shape):
+    T_block, tc = SHAPES[shape]
+    cfg, state, ctx, x = _cleanup_inputs(CLEANUP_MODES[mode], T_block, seed=60)
+    op, yp = troute.cleanup_scan_plain(cfg, state, ctx, x)
+
+    fin = np.stack([state[k].numpy() for k in troute._SCAN_FLOAT_KEYS])
+    iin = np.stack([state["rumble_hold"].numpy()]
+                   + [ctx[k].numpy() for k in troute._SCAN_INT_KEYS[1:8]]
+                   + [state[k]["fade_remaining"].numpy() for k in troute._NOTCHES]
+                   ).astype(np.int32)
+    leaves = [np.ascontiguousarray(state[k][leaf].numpy())
+              for leaf in ("coeffs", "z") for k in troute._NOTCHES]
+    consts = troute._scan_consts(cfg)
+    fconsts = np.array(consts[:3], np.float32)
+    iconsts = np.array(consts[3:5], np.int32)
+    xb = np.ascontiguousarray(x.numpy())
+    y = np.empty_like(xb)
+    fout = np.empty((6, NS), np.float32)
+    zout = [np.empty((NS, 2, 2), np.float64) for _ in troute._NOTCHES]
+    iout = np.empty((1, NS), np.int32)
+    err = host_lib.host_cleanup_scan(
+        _ptr(xb), _ptr(fin), *(_ptr(a) for a in leaves), _ptr(iin), _ptr(y), _ptr(fout),
+        *(_ptr(z) for z in zout), _ptr(iout), NS, T_block, _ptr(fconsts), _ptr(iconsts),
+        consts[5], tc)
+    assert err == 0
+    np.testing.assert_allclose(y, yp.numpy(), rtol=0, atol=1e-6)
+    for key, z in zip(troute._NOTCHES, zout):
+        np.testing.assert_allclose(z, op[key].numpy(), rtol=0, atol=1e-9, err_msg=key)
+    out = dict(zip(troute._SCAN_FLOAT_KEYS, fout))
+    for key in troute._SCAN_FLOAT_KEYS[:4]:  # the rumble detector rounds as the twin
+        np.testing.assert_array_equal(out[key], op[key].numpy(), err_msg=key)
+    for key in ("dc_x1", "dc_y1"):
+        np.testing.assert_allclose(out[key], op[key].numpy(), rtol=0, atol=1e-6, err_msg=key)
+    hold = op["rumble_hold"].numpy()
+    np.testing.assert_array_equal(iout[0], hold)
+    # the trigger fired where it could and nowhere else: a fired hold stands
+    # within a block of its set value, the others ran down from their start
+    hold_set = consts[3]
+    fired = hold > hold_set - T_block
+    assert sorted(np.flatnonzero(fired)) == sorted(FIRING)
+    start = state["rumble_hold"].numpy()
+    np.testing.assert_array_equal(hold[~fired], np.maximum(start[~fired] - T_block, 0))
+    assert hold[1] == hold_set - (T_block - 200)  # last fired just before the boundary
+    # the crossfades changed the output: against the same state with idle lanes
+    idle = dict(state)
+    for key in troute._NOTCHES:
+        idle[key] = dict(state[key], fade_remaining=torch.zeros(NS, dtype=torch.int32))
+    _, y_idle = troute.cleanup_scan_plain(cfg, idle, ctx, x)
+    assert (yp[8] - y_idle[8]).abs().max() > 1e-4
+
+
+def _limiter_inputs(kind: str, T_block: int, seed: int):
+    """``(peak, xd, ceiling, rc, gain0, scale)`` as the lookahead limiter
+    (window max of the history-extended block, both arguments windows of
+    longer rows) or the true-peak limiter (a contiguous peak, the delayed
+    input a window) gives them; transients over the ceiling on most streams,
+    none on stream 3, a gain still releasing from the block before on the
+    odd streams."""
+    rng = np.random.default_rng(seed)
+    W = 96 if kind == "limiter" else 20
+    ext = 0.4 * rng.standard_normal((NS, W + T_block))
+    for i in range(NS):
+        for at in rng.integers(0, W + T_block - 40, 3):
+            ext[i, at:at + 30] *= rng.uniform(2.0, 4.0)
+    ext[3] = np.clip(ext[3], -0.5, 0.5)
+    ext = torch.from_numpy(ext.astype(np.float32))
+    if kind == "limiter":
+        peak = tscan.sliding_window_max(ext.abs(), W + 1)[:, W:]
+        scale, release_s = 1.0, 0.050
+    else:
+        peak = (ext[:, W:].abs() * torch.from_numpy(
+            rng.uniform(1.0, 1.2, (NS, T_block)).astype(np.float32))).contiguous()
+        scale, release_s = 0.999, 0.020
+    ceiling = torch.from_numpy(rng.uniform(0.7, 0.95, NS).astype(np.float32))
+    rc = torch.full((NS,), float(np.exp(-1.0 / (release_s * FS))))
+    gain0 = torch.from_numpy(
+        np.where(np.arange(NS) % 2, rng.uniform(0.4, 0.9, NS), 1.0).astype(np.float32))
+    return peak, ext[:, :T_block], ceiling, rc, gain0, scale
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_max_affine_scan_host_build_matches_plain(host_lib, shape):
+    T_block, tc = SHAPES[shape]
+    peak, _, ceiling, rc, gain0, _ = _limiter_inputs("limiter", T_block, seed=70)
+    target = torch.where(peak > ceiling[:, None], ceiling[:, None] / peak, 1.0)
+    v = (1.0 - target).contiguous()
+    c = ((1.0 - rc)[:, None] * v).contiguous()
+    u0 = (1.0 - gain0).contiguous()
+    u = np.empty((NS, T_block), np.float32)
+    err = host_lib.host_max_affine_scan(_ptr(v.numpy()), _ptr(c.numpy()), _ptr(rc.numpy()),
+                                        _ptr(u0.numpy()), _ptr(u), NS, T_block, tc)
+    assert err == 0
+    up = tscan.max_affine_scan_plain(v, rc, c, u0).numpy()
+    np.testing.assert_array_equal(u, up)
+    # limiting engaged; stream 3 only releases from the block before
+    assert up.max() > 0.3 and (np.diff(up[3]) <= 0).all() and (np.diff(up[0]) > 0).any()
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("kind", ["limiter", "true-peak"])
+def test_limiter_gain_scan_host_build_matches_plain(host_lib, kind, shape):
+    T_block, tc = SHAPES[shape]
+    peak, xd, ceiling, rc, gain0, scale = _limiter_inputs(kind, T_block, seed=71)
+    assert not xd.is_contiguous() and (kind == "true-peak") == peak.is_contiguous()
+    y = np.empty((NS, T_block), np.float32)
+    gain_last, min_gain = np.empty(NS, np.float32), np.empty(NS, np.float32)
+    events = np.empty(NS, np.int32)
+    err = host_lib.host_limiter_gain_scan(
+        peak.data_ptr(), peak.stride(0), xd.data_ptr(), xd.stride(0), _ptr(ceiling.numpy()),
+        _ptr(rc.numpy()), _ptr(gain0.numpy()), scale, _ptr(y), _ptr(gain_last),
+        _ptr(min_gain), _ptr(events), NS, T_block, tc)
+    assert err == 0
+    yp, lastp, minp, eventsp = tscan.limiter_gain_scan_plain(peak, xd, ceiling, rc, gain0, scale)
+    np.testing.assert_array_equal(y, yp.numpy())
+    np.testing.assert_array_equal(gain_last, lastp.numpy())
+    np.testing.assert_array_equal(min_gain, minp.numpy())
+    np.testing.assert_array_equal(events, eventsp.numpy())
+    assert eventsp.numpy().sum() >= NS - 2 and minp.min() < 0.5  # limiting engaged
+    assert np.abs(yp.numpy()).max(axis=1).max() <= ceiling.max()

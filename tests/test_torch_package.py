@@ -42,6 +42,8 @@ def test_wrappers_refuse_devices_they_cannot_launch_on():
     with pytest.raises(ValueError, match="unsupported device"):
         scan.max_affine_scan(x, torch.empty(2, **meta), x, torch.empty(2, **meta))
     with pytest.raises(ValueError, match="unsupported device"):
+        scan.limiter_gain_scan(x, x, *(torch.empty(2, **meta),) * 3, 1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
         envelope.env_scan(x, torch.empty(8, **meta))
     with pytest.raises(ValueError, match="unsupported device"):
         biquad.biquad_cascade(x, torch.empty((2, 1, 2, 5), **meta),

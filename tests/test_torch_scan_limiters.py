@@ -54,6 +54,40 @@ def test_max_affine_scan_matches_reference():
     np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", ["limiter", "true-peak"])
+def test_limiter_gain_scan_matches_reference(kind):
+    """The gain stage both limiters call against the reference's lines for it
+    (``ops/limiter.py:127-139`` with scale 1, ``ops/true_peak.py:184-205`` with
+    0.999), on windows of longer rows as the limiters pass them."""
+    rng = np.random.default_rng(7)
+    W = 96 if kind == "limiter" else 20
+    ext = np.concatenate([_signal(rng, 1)[:, -W:], _signal(rng, 2)[:, T:]], axis=-1)
+    peak_ext = (np.abs(ext) * rng.uniform(1.0, 1.3, ext.shape)).astype(np.float32)
+    ceiling = rng.uniform(0.6, 0.9, N).astype(np.float32)
+    rc = np.full(N, np.exp(-1.0 / (0.02 * 48000.0)), np.float32)
+    gain0 = np.array([1.0, 0.5, 0.8], np.float32)
+    scale = 1.0 if kind == "limiter" else 0.999
+    peak, delayed = jnp.asarray(peak_ext[:, W:]), jnp.asarray(ext[:, :T])
+    cj = jnp.asarray(ceiling)[:, None]
+    quotient = cj * jnp.float32(scale) / jnp.maximum(peak, 1e-30)
+    target = jnp.where(peak > cj, quotient if kind == "limiter"
+                       else jnp.clip(quotient, 0.0, 1.0), 1.0)
+    v = 1.0 - target
+    rj = jnp.asarray(rc)[:, None]
+    u = jscan.max_affine_scan(v, rj, (1.0 - rj) * v, 1.0 - jnp.asarray(gain0))
+    gain = 1.0 - u
+    y_ref = jnp.clip(delayed * gain, -cj, cj)
+    g_prev = jnp.concatenate([jnp.asarray(gain0)[:, None], gain[:, :-1]], axis=-1)
+    y, gain_last, min_gain, events = tscan.limiter_gain_scan(
+        _t(peak_ext)[:, W:], _t(ext)[:, :T], _t(ceiling), _t(rc), _t(gain0), scale)
+    _assert_audio(y.numpy(), y_ref)
+    np.testing.assert_allclose(gain_last.numpy(), np.asarray(gain[:, -1]), atol=1e-5)
+    np.testing.assert_allclose(min_gain.numpy(), np.asarray(gain.min(axis=-1)), atol=1e-5)
+    np.testing.assert_array_equal(events.numpy(),
+                                  np.asarray(jnp.any(target < g_prev, axis=-1)))
+    assert events.numpy().all() and float(min_gain.min()) < 0.5  # the transient limited
+
+
 def test_limiter_matches_reference():
     rng = np.random.default_rng(2)
     x = _signal(rng, 3)
