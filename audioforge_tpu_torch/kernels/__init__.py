@@ -11,6 +11,9 @@ compiler's output.
 
 Each launcher returns ``cudaGetLastError()``; :func:`launch` raises when it is
 not 0 and otherwise adds one to the kernel's entry in :data:`launch_counts`.
+A replay of a captured CUDA graph launches without Python: the serving
+engine adds the launches its capture recorded to :data:`launch_counts` on
+every replay.
 """
 
 from __future__ import annotations

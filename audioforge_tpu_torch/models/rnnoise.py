@@ -16,7 +16,7 @@ with f64 state; the GEMMs are ``torch.matmul``.
 from __future__ import annotations
 
 import os
-from functools import lru_cache
+from functools import cache
 from pathlib import Path
 
 import numpy as np
@@ -109,7 +109,9 @@ def _dct_matrix() -> np.ndarray:
     return m
 
 
-@lru_cache(maxsize=4)
+# cached without bound: the serving engine's captured CUDA graph reads these
+# tensors by address, so an entry dropped from the cache would be freed under it
+@cache
 def _consts(device: torch.device) -> dict:
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     return {
@@ -119,6 +121,10 @@ def _consts(device: torch.device) -> dict:
         "dct_t": f32(_dct_matrix().T.copy()),        # (22, 22)
         "lagw": f32([1.0] + [1.0 - (0.008 * i) ** 2 for i in range(1, 5)]),
         "decay": f32([0.9 ** (i + 1) for i in range(4)]),
+        "second_check": torch.as_tensor(_SECOND_CHECK[2:16], dtype=torch.int32,
+                                        device=device),
+        "pc_offset": f32([1.3, 0.9, 0, 0, 0, 0]),
+        "ceps_offset": f32([12.0, 4.0] + [0.0] * (NB_BANDS - 2)),
     }
 
 
@@ -339,7 +345,7 @@ def _remove_doubling(x24, T0_48, prev_period_48, prev_gain, corr_full):
     yy_lookup = torch.clamp_min(yy_lookup, 0.0)
 
     ks = torch.arange(2, 16, device=dev, dtype=torch.int32)
-    sec = torch.as_tensor(_SECOND_CHECK[2:16], device=dev, dtype=torch.int32)
+    sec = _consts(dev)["second_check"]
     T1s = _floor_div(2 * T0[:, None] + ks, 2 * ks)
     T1bs = _floor_div(2 * sec * T0[:, None] + ks, 2 * ks)
     t1b2 = torch.where(T1s[:, 0] + T0 > maxp, T0, T0 + T1s[:, 0])
@@ -432,12 +438,10 @@ def frame_features(state, x_frame):
         0.001 + Ex * Ep)
 
     pc = (Exp @ c["dct_t"])[:, :NB_DELTA_CEPS]
-    pc = pc - torch.as_tensor([1.3, 0.9, 0, 0, 0, 0], dtype=torch.float32,
-                              device=pc.device)
+    pc = pc - c["pc_offset"]
     silence = torch.sum(Ex, dim=-1) < _SILENCE_ENERGY
     ceps = _spectral_floor(torch.log10(1e-2 + Ex)) @ c["dct_t"]
-    ceps = ceps - torch.as_tensor([12.0, 4.0] + [0.0] * (NB_BANDS - 2),
-                                  dtype=torch.float32, device=pc.device)
+    ceps = ceps - c["ceps_offset"]
 
     mem = state["cepstral_mem"]
     c0, c1, c2 = ceps, mem[:, 0], mem[:, 1]

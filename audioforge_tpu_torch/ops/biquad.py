@@ -21,7 +21,7 @@ When ``fade_remaining == 0`` the two lanes are identical by construction.
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import cache
 
 import numpy as np
 import torch
@@ -205,12 +205,15 @@ def _dual_lane(c: torch.Tensor, n: int) -> torch.Tensor:
     return c.reshape(-1, 1, 5).expand(n, -1, 2, 5).contiguous()
 
 
-@lru_cache(maxsize=32)
+# device constants are cached without bound: the serving engine's captured
+# CUDA graph reads them by address, so an entry dropped from the cache would be
+# freed under it
+@cache
 def _host_coeffs(key: tuple, n: int, device: torch.device) -> torch.Tensor:
     return _dual_lane(torch.tensor(key, dtype=torch.float32, device=device), n)
 
 
-@lru_cache(maxsize=32)
+@cache
 def _idle_fades(n: int, s: int, device: torch.device) -> torch.Tensor:
     return torch.zeros((n, s), dtype=torch.int32, device=device)
 

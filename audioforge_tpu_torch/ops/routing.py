@@ -23,7 +23,7 @@ Counterpart of ``audioforge_tpu/ops/routing.py``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import cache, lru_cache
 
 import numpy as np
 import torch
@@ -96,6 +96,15 @@ def _hp_coeffs(hz: float, sample_rate: float) -> tuple:
     """The owned high-pass at ``hz`` (Q 0.707), f32 values."""
     c = biquad.design(biquad.HIGH_PASS, hz, 0.0, PREFILTER_Q, sample_rate)
     return tuple(float(v) for v in np.asarray(c, np.float32))
+
+
+# cached without bound, as _bank_omegas is
+@cache
+def _hp_rows(sample_rate: float, raised_hz: float, device: torch.device) -> tuple:
+    """The owned high-pass at rest (80 Hz) and raised to ``raised_hz``, f32
+    ``[5]`` rows on ``device``."""
+    return tuple(torch.tensor(_hp_coeffs(hz, sample_rate), device=device)
+                 for hz in (PREFILTER_HZ, raised_hz))
 
 
 def _notch_coeffs(freq_hz, sample_rate: float):
@@ -258,7 +267,10 @@ def _wrap_phase(p):
     return torch.where(r < 0, r + 2.0 * np.pi, r) - np.pi
 
 
-@lru_cache(maxsize=8)
+# device constants are cached without bound: the serving engine's captured
+# CUDA graph reads them by address, so an entry dropped from the cache would be
+# freed under it
+@cache
 def _bank_omegas(sample_rate: float, device: torch.device) -> torch.Tensor:
     """Radians per sample of the 13 primary and 13 harmonic bins, f32."""
     freqs = HUM_MIN_HZ + HUM_TRACK_STEP_HZ * np.arange(HUM_TRACK_BINS)
@@ -585,8 +597,7 @@ def routing_process(config: RoutingConfig, state, x):
     raised_hz = 100.0 if gentle else 120.0
     selected_hp = torch.where(rumble_detected, raised_hz, PREFILTER_HZ).to(torch.float32)
     retune_hp = (selected_hp - state["adaptive_hp_hz"]).abs() > 0.5
-    lo = torch.tensor(_hp_coeffs(PREFILTER_HZ, fs), device=x.device)
-    hi = torch.tensor(_hp_coeffs(raised_hz, fs), device=x.device)
+    lo, hi = _hp_rows(fs, raised_hz, x.device)
     target_c = torch.where((selected_hp > PREFILTER_HZ)[:, None], hi, lo)
     hp = state["adaptive_hp"]
     scheduled = biquad.unit_schedule(hp, target_c[:, None],

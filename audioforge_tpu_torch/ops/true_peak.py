@@ -12,7 +12,7 @@ release recurrence, delayed input times gain, clamp, gain statistics) is one
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import cache
 
 import numpy as np
 import torch
@@ -68,7 +68,9 @@ _FIR_OLDEST_FIRST = np.ascontiguousarray(
     polyphase_coefficients().astype(np.float32)[:, ::-1].T)  # [32, 4]
 
 
-@lru_cache(maxsize=4)
+# cached without bound: the serving engine's captured CUDA graph reads the
+# taps by address
+@cache
 def _fir(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_FIR_OLDEST_FIRST, device=device)
 

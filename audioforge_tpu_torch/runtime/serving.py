@@ -9,13 +9,22 @@ is dropped. Suppressor failures are per-slot state: a non-finite model
 output falls back to the latency-aligned dry signal, and three such events
 within 2 s soft-reset the model state (2 s cooldown).
 
+The engine keeps its inputs, controls and state in static buffers. On the
+card a block step is one replay of a CUDA graph of :func:`_serving_step`,
+captured at the first step (the counterpart of the reference's one jitted
+step), which also copies the new state back into the static state; a slot
+reset, a staged EQ program and a control write are applied to the static
+buffers before the replay. On the CPU the same code calls
+:func:`_serving_step` eagerly in place of the replay. ``step_many`` replays
+the graph once per block of the span; ``step_pipelined`` delivers block
+t-1 while block t runs; ``start`` runs the free-run loop.
+
 The engine runs on the card unless it is given ``device="cpu"``; without a
 CUDA device, building one for the card raises.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): in-step Silero VAD, the DeepFilterNet suppressors and stream-axis
-sharding. ``step_pipelined``, the free-run loop and ``set_stream_eq`` are
-not present.
+sharding.
 """
 
 from __future__ import annotations
@@ -28,7 +37,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import kernels
 from ..models import rnnoise
+from ..ops import eq as eq_ops
 from . import live_chain as lc
 
 __all__ = ["BLOCK", "ServingConfig", "ServingEngine"]
@@ -108,10 +119,11 @@ def _masked_reset(state, fresh, reset_mask, shared=frozenset(), path=()):
 _SHARED = frozenset(("chain",) + p for p in lc.SHARED_LEAVES)
 
 
-def _supp_step(config: ServingConfig, sp, state, x):
+def _supp_step(config: ServingConfig, sp, state, fresh_model, x):
     """Frame-synchronous batched RNNoise with the per-slot failure latch,
-    soft reset and one-frame dry delay. ``sp``: {weights, strength [N],
-    enabled [N], smoothing_coeff}. Returns (new_state, y, metrics)."""
+    soft reset (to ``fresh_model``) and one-frame dry delay. ``sp``:
+    {weights, strength [N], enabled [N], smoothing_coeff}. Returns
+    (new_state, y, metrics)."""
     scaled = torch.clamp(rnnoise.soft_clip(x) * rnnoise.PCM_SCALE,
                          -rnnoise.PCM_MODEL_LIMIT, rnnoise.PCM_MODEL_LIMIT)
     mstate, wet, aux = rnnoise.rnnoise_frame(sp["weights"], state["model"], scaled)
@@ -125,7 +137,6 @@ def _supp_step(config: ServingConfig, sp, state, x):
     timer = torch.where(~finite, _NONFINITE_WINDOW_BLOCKS, timer)
     cooldown = torch.clamp_min(state["reset_cooldown"] - 1, 0)
     do_reset = (count >= _NONFINITE_EVENTS_FOR_RESET) & (cooldown == 0)
-    fresh_model = rnnoise.rnnoise_state_init(n=config.capacity, device=x.device)
     mstate = _masked_reset(mstate, fresh_model, do_reset)
     count = torch.where(do_reset, 0, count)
     cooldown = torch.where(do_reset, _RESET_COOLDOWN_BLOCKS, cooldown)
@@ -156,8 +167,9 @@ def _supp_step(config: ServingConfig, sp, state, x):
 
 def _serving_step(config: ServingConfig, params, state, fresh, x, active,
                   reset_mask, ext_vad_prob, ext_vad_avail):
-    """One block for every slot. ``reset_mask`` None skips the slot reset
-    (no slot was attached since the last step)."""
+    """One block for every slot, a pure function of its arguments.
+    ``reset_mask`` None skips the slot reset (the engine resets its static
+    state before the step instead)."""
     if reset_mask is not None:
         state = _masked_reset(state, fresh, reset_mask, _SHARED)
     x = torch.where(active[:, None], x, 0.0)
@@ -167,7 +179,8 @@ def _serving_step(config: ServingConfig, params, state, fresh, x, active,
                                   x, vad_prob, vad_avail)
     sm = {}
     if config.suppressor_model is not None:
-        sstate, y, sm = _supp_step(config, params["supp"], state["supp"], y)
+        sstate, y, sm = _supp_step(config, params["supp"], state["supp"],
+                                   fresh["supp"]["model"], y)
     evidence = {
         "vad_probability": vad_prob,
         "vad_reliability": vad_avail.to(torch.float32),
@@ -181,20 +194,6 @@ def _serving_step(config: ServingConfig, params, state, fresh, x, active,
     metrics = {**fm, **sm, **bm, "vad_probability": vad_prob,
                "vad_available": vad_avail}
     return new_state, y2, metrics
-
-
-def _serving_scan(config: ServingConfig, params, state, fresh, xs, active,
-                  reset_mask, ext_vad_prob, ext_vad_avail):
-    """``xs: [n_blocks, N, 480]`` block by block; slot resets apply once,
-    before the first block. Returns (state, ys, last block's metrics)."""
-    if reset_mask is not None:
-        state = _masked_reset(state, fresh, reset_mask, _SHARED)
-    ys, metrics = [], None
-    for xb in xs:
-        state, y, metrics = _serving_step(config, params, state, fresh, xb,
-                                          active, None, ext_vad_prob, ext_vad_avail)
-        ys.append(y)
-    return state, torch.stack(ys), metrics
 
 
 def _stack_tree(tree, n):
@@ -218,6 +217,52 @@ def _to_device(tree, device):
     return torch.as_tensor(np.copy(tree), device=device)
 
 
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _leaf_pairs(dst, src, out):
+    """``(dst, src)`` leaves of two trees of one layout, by ``dst``'s keys,
+    where ``src`` is not ``dst`` itself."""
+    for k, d in dst.items():
+        if isinstance(d, dict):
+            _leaf_pairs(d, src[k], out)
+        elif src[k] is not d:
+            out.append((d, src[k]))
+    return out
+
+
+def _copy_into(dst, src) -> None:
+    """Copy tree ``src`` into the tensors of tree ``dst``. A source that
+    shares memory with a written destination is cloned first, so that no
+    copy reads what another one wrote."""
+    pairs = _leaf_pairs(dst, src, [])
+    if not pairs:
+        return
+    written = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    torch._foreach_copy_(
+        [d for d, _ in pairs],
+        [s.clone() if s.untyped_storage().data_ptr() in written else s
+         for _, s in pairs])
+
+
+def _copy_host_tree(dst, src) -> None:
+    """Copy a tree of numpy leaves into the tensors of ``dst``."""
+    for k, d in dst.items():
+        if isinstance(d, dict):
+            _copy_host_tree(d, src[k])
+        else:
+            d.copy_(torch.from_numpy(np.array(src[k])), non_blocking=True)
+
+
+def _kept(metrics: dict) -> dict:
+    """Copies of a step's metrics, which the next step does not overwrite."""
+    out = {k: torch.empty_like(v) for k, v in metrics.items()}
+    torch._foreach_copy_(list(out.values()), list(metrics.values()))
+    return out
+
+
 class _Slot:
     __slots__ = ("active", "generation", "sink", "pending", "underruns", "blocks")
 
@@ -238,7 +283,7 @@ class ServingEngine:
         eng = ServingEngine(ServingConfig(capacity=16))   # on the card
         slot = eng.attach(sink=lambda block: ...)   # block: float32[480]
         eng.push(slot, samples)                     # 48 kHz mono
-        eng.step()                                  # or eng.step_many(k)
+        eng.step()                                  # or step_many(k), start()
         eng.set_stream_params(slot, compressor_threshold_db=-24.0)
         eng.stream_diagnostics(slot)
         eng.detach(slot)
@@ -257,15 +302,18 @@ class ServingEngine:
                 "available: pass device='cpu' to run the plain PyTorch path")
         self.config = config or ServingConfig()
         n = self.config.capacity
-        self._lock = threading.Lock()
+        dev = self.device
+        self._lock = threading.RLock()
         self._slots = [_Slot() for _ in range(n)]
         self._reset_pending = np.zeros(n, bool)
-        self._fresh = _serving_state_init(self.config, self.device, eq_bands)
-        self._state = self._fresh
+        self._pending_eq = {}
+        self._eq_layout = eq_ops.eq_layout(eq_bands)
+        self._fresh = _serving_state_init(self.config, dev, eq_bands)
+        self._state = _clone_tree(self._fresh)  # the static state buffers
         self._last_metrics = None
         self._chain_kw = {}
         self._params = {"chain": _stack_tree(lc.live_params(self.config.chain), n)}
-        self._weights = {}
+        weights = {}
         if self.config.suppressor_model is not None:
             if rnnoise_weights is None:
                 path = rnnoise.discover_model_path()
@@ -273,16 +321,36 @@ class ServingEngine:
                     raise FileNotFoundError(
                         "no RNNoise weight archive: set RNNOISE_MODEL_PATH or "
                         "provide models/rnnoise.npz")
-                rnnoise_weights = rnnoise.load_weights(path, self.device)
-            self._weights["supp"] = {k: v.to(self.device)
-                                     for k, v in rnnoise_weights.items()}
+                rnnoise_weights = rnnoise.load_weights(path, dev)
+            weights["supp"] = {k: v.to(dev) for k, v in rnnoise_weights.items()}
             self._params["supp"] = {
                 "strength": np.ones(n, np.float32),
                 "enabled": np.ones(n, bool),
                 "smoothing_coeff": np.float32(1.0 - np.exp(-(BLOCK / 48000.0) / 0.015)),
             }
-        self._params_dirty = True
-        self._params_device = None
+        # static inputs of the step: the control tree (written after a
+        # control write), the block, the active mask and the external VAD
+        self._params_static = _to_device(self._params, dev)
+        self._params_dev = {k: dict(v, weights=weights[k]) if k in weights else v
+                            for k, v in self._params_static.items()}
+        self._params_dirty = False
+        self._x = torch.zeros((n, BLOCK), dtype=torch.float32, device=dev)
+        self._active = torch.zeros(n, dtype=torch.bool, device=dev)
+        self._active_host = np.zeros(n, bool)
+        self._vad_prob = torch.zeros(n, dtype=torch.float32, device=dev)
+        self._vad_avail = torch.zeros(n, dtype=torch.bool, device=dev)
+        self._vad_host = (np.zeros(n, np.float32), np.zeros(n, bool))
+        self._host_bufs = {}
+        self._calls = 0
+        self._graph = None
+        self._graph_out = None
+        self._graph_launches = {}
+        self.capture_seconds = None
+        self._inflight = None
+        self._thread = None
+        self._running = False
+        self.realtime_pacing = False
+        self.pipelined_loop = True
         self.steps = 0
         self.last_step_seconds = 0.0
         self._step_times = collections.deque(maxlen=_STEP_TIME_HISTORY)
@@ -310,6 +378,7 @@ class ServingEngine:
                     s.underruns = 0
                     s.blocks = 0
                     self._reset_pending[i] = True
+                    self._pending_eq.pop(i, None)  # stale staged EQ
                     self._chain_kw[i] = {}
                     _write_tree(self._params["chain"],
                                 lc.live_params(self.config.chain), i)
@@ -326,6 +395,7 @@ class ServingEngine:
             s.active = False
             s.sink = None
             s.pending = np.zeros(0, np.float32)
+            self._pending_eq.pop(slot, None)
 
     def push(self, slot: int, samples) -> None:
         """Queue 48 kHz mono samples for a stream."""
@@ -358,24 +428,58 @@ class ServingEngine:
                 self._params["supp"]["enabled"][slot] = bool(enabled)
             self._params_dirty = True
 
-    # ---------------------------------------------------------------- step
-    def _device_params(self):
-        """Control tensors on the device, refreshed only after a write."""
-        if self._params_dirty or self._params_device is None:
-            staged = _to_device(self._params, self.device)
-            for group, weights in self._weights.items():
-                staged[group] = dict(staged[group], weights=weights)
-            self._params_device = staged
-            self._params_dirty = False
-        return self._params_device
+    def set_stream_eq(self, slot: int, eq_bands) -> None:
+        """Replace one stream's EQ program (``eq_bands``: a list of
+        :class:`~audioforge_tpu_torch.ops.eq.EqBandConfig`, None for the
+        flat default). Staged like a slot reset: the fresh EQ state is
+        recorded under the lock and written into the slot's rows at the next
+        block boundary; a slot reset in that step takes it one step later.
+        Raises when the bands need another section layout than the engine's
+        EQ was built with."""
+        layout = eq_ops.eq_layout(eq_bands)
+        if layout != self._eq_layout:
+            raise ValueError(
+                f"EQ bands need the section layout {layout}, the engine's EQ "
+                f"has {self._eq_layout}: build the engine with eq_bands of "
+                "that layout")
+        fresh_eq = eq_ops.eq_init(eq_bands, self.config.chain.sample_rate, n=1,
+                                  device="cpu")
+        with self._lock:
+            self._pending_eq[slot] = fresh_eq
 
-    def _gather(self, n_blocks: int):
+    # ---------------------------------------------------------------- step
+    def _host(self, name: str, shape: tuple) -> torch.Tensor:
+        """A host staging buffer, pinned when the engine runs on the card,
+        kept for later steps of the same shape."""
+        key = (name, shape)
+        buf = self._host_bufs.get(key)
+        if buf is None:
+            buf = torch.empty(shape, dtype=torch.float32,
+                              pin_memory=self.device.type == "cuda")
+            self._host_bufs[key] = buf
+        return buf
+
+    def _gather(self, n_blocks: int) -> torch.Tensor:
+        """Stage the next ``n_blocks`` blocks: apply pending slot resets,
+        staged EQ programs and control writes to the static buffers, and
+        fill a host buffer ``[n_blocks, N, BLOCK]`` with the slots' input
+        (two buffers in turn, so that a copy still in flight from the
+        previous call is never overwritten)."""
         n = self.config.capacity
-        x = np.zeros((n_blocks, n, BLOCK), np.float32)
+        self._calls += 1
+        xh = self._host(f"x{self._calls % 2}", (n_blocks, n, BLOCK))
+        x = xh.numpy()
+        x.fill(0.0)
         active = np.zeros(n, bool)
         with self._lock:
             reset = self._reset_pending.copy()
             self._reset_pending[:] = False
+            # a slot reset in this step would wipe its EQ surgery: it takes
+            # the staged program one step later
+            for slot in [s for s in self._pending_eq if not reset[s]]:
+                fresh_eq = self._pending_eq.pop(slot)
+                for key, row in fresh_eq.items():
+                    self._state["chain"]["eq"][key][slot].copy_(row[0], non_blocking=True)
             for i, s in enumerate(self._slots):
                 if not s.active:
                     continue
@@ -392,50 +496,175 @@ class ServingEngine:
                         x[full, i, :rem] = got[full * BLOCK:]
                 if take < want:
                     s.underruns += -(-(want - take) // BLOCK)
-            params = self._device_params()
-        dev = self.device
-        reset_t = torch.as_tensor(reset, device=dev) if reset.any() else None
-        return (torch.as_tensor(x, device=dev), torch.as_tensor(active, device=dev),
-                reset_t, params)
+            if self._params_dirty:
+                _copy_host_tree(self._params_static, self._params)
+                self._params_dirty = False
+        if reset.any():
+            mask = torch.from_numpy(reset).to(self.device, non_blocking=True)
+            _copy_into(self._state,
+                       _masked_reset(self._state, self._fresh, mask, _SHARED))
+        if not np.array_equal(active, self._active_host):
+            self._active.copy_(torch.from_numpy(active), non_blocking=True)
+            self._active_host = active
+        return xh
 
-    def _ext_vad(self, prob, avail):
+    def _stage_vad(self, prob, avail) -> None:
+        """Write the external VAD inputs into their static tensors when they
+        changed."""
         n = self.config.capacity
-        prob = np.zeros(n, np.float32) if prob is None else prob
-        avail = np.zeros(n, bool) if avail is None else avail
-        return (torch.as_tensor(np.asarray(prob, np.float32), device=self.device),
-                torch.as_tensor(np.asarray(avail, bool), device=self.device))
+        prob = np.broadcast_to(np.zeros(n, np.float32) if prob is None
+                               else np.asarray(prob, np.float32), (n,))
+        avail = np.broadcast_to(np.zeros(n, bool) if avail is None
+                                else np.asarray(avail, bool), (n,))
+        if not np.array_equal(prob, self._vad_host[0]):
+            self._vad_prob.copy_(torch.from_numpy(prob.copy()), non_blocking=True)
+        if not np.array_equal(avail, self._vad_host[1]):
+            self._vad_avail.copy_(torch.from_numpy(avail.copy()), non_blocking=True)
+        self._vad_host = (prob.copy(), avail.copy())
+
+    def _step_in_place(self, state):
+        """:func:`_serving_step` on the static inputs, its new state copied
+        into ``state``. Returns the block's ``(y, metrics)``."""
+        new_state, y, metrics = _serving_step(
+            self.config, self._params_dev, state, self._fresh, self._x,
+            self._active, None, self._vad_prob, self._vad_avail)
+        _copy_into(state, new_state)
+        return y, metrics
+
+    def _capture(self) -> None:
+        """Capture :meth:`_step_in_place` on the static state as a CUDA
+        graph. One eager warm-up step on a copy of the state, on the capture
+        stream, first creates what the step sets up lazily (cached device
+        constants, the cuFFT plan, the cuBLAS workspace, the kernels'
+        attributes). The kernel launches the capture recorded are added to
+        ``kernels.launch_counts`` on every replay; the warm-up's and the
+        capture's own are not counted. A failed capture raises."""
+        with self._lock, torch.cuda.device(self.device):
+            counts = dict(kernels.launch_counts)
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                self._step_in_place(_clone_tree(self._state))
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            before = dict(kernels.launch_counts)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = self._step_in_place(self._state)
+            graph.instantiate()
+            self.capture_seconds = time.perf_counter() - t0
+            self._graph_launches = {k: v - before[k]
+                                    for k, v in kernels.launch_counts.items()
+                                    if v > before[k]}
+            kernels.launch_counts.update(counts)
+            self._graph, self._graph_out = graph, out
+
+    def _run(self):
+        """Advance the static state by the block in the static inputs.
+        Returns the block's ``(y, metrics)``, valid until the next run."""
+        if self.device.type != "cuda":
+            return self._step_in_place(self._state)
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        for name, k in self._graph_launches.items():
+            kernels.launch_counts[name] += k
+        return self._graph_out
+
+    def _advance(self, n_blocks: int, ext_vad_prob, ext_vad_avail):
+        """Run ``n_blocks`` blocks. Returns their output ``[n_blocks, N,
+        BLOCK]`` on the device and the last block's metrics."""
+        xh = self._gather(n_blocks)
+        self._stage_vad(ext_vad_prob, ext_vad_avail)
+        if n_blocks == 1:
+            self._x.copy_(xh[0], non_blocking=True)
+            y, metrics = self._run()
+            return y[None], _kept(metrics)
+        xs = xh.to(self.device, non_blocking=True)
+        ys = torch.empty_like(xs)
+        for b in range(n_blocks):
+            self._x.copy_(xs[b])
+            y, metrics = self._run()
+            ys[b].copy_(y)
+        return ys, _kept(metrics)
+
+    def _fetch(self, ys):
+        """Start copying ``ys`` to a host buffer (two in turn). Returns what
+        :meth:`_landed` waits on."""
+        buf = self._host(f"y{self._calls % 2}", tuple(ys.shape))
+        buf.copy_(ys, non_blocking=True)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return buf, done
+
+    @staticmethod
+    def _landed(fetch) -> np.ndarray:
+        """The fetched blocks as a new host array (sinks may keep views)."""
+        buf, done = fetch
+        if done is not None:
+            done.synchronize()
+        return buf.numpy().copy()
+
+    def _record_time(self, t0: float, n_blocks: int) -> None:
+        self.steps += n_blocks
+        self.last_step_seconds = time.perf_counter() - t0
+        self._step_times.extend([self.last_step_seconds / n_blocks] * n_blocks)
 
     def step(self, ext_vad_prob=None, ext_vad_avail=None):
         """Advance every stream by one block. Returns per-slot metrics."""
         t0 = time.perf_counter()
-        x, active, reset, params = self._gather(1)
-        vp, va = self._ext_vad(ext_vad_prob, ext_vad_avail)
-        self._state, y, metrics = _serving_step(
-            self.config, params, self._state, self._fresh, x[0], active, reset,
-            vp, va)
-        self._deliver(y.cpu().numpy()[None], 1)
+        ys, metrics = self._advance(1, ext_vad_prob, ext_vad_avail)
+        self._deliver(self._landed(self._fetch(ys)), 1)
         self._last_metrics = metrics
-        self.steps += 1
-        self.last_step_seconds = time.perf_counter() - t0
-        self._step_times.append(self.last_step_seconds)
+        self._record_time(t0, 1)
         return metrics
 
+    def step_pipelined(self, ext_vad_prob=None, ext_vad_avail=None):
+        """Advance every stream by one block with one block of pipeline
+        delay: block t is launched and its copy to the host queued, then
+        block t-1 is delivered once its copy has landed, while block t runs.
+        Sinks receive each block one call later than :meth:`step`, with the
+        same audio. Call :meth:`flush_pipeline` (or :meth:`stop`) to deliver
+        the last block. Returns the delivered block's metrics, or None on
+        the first call."""
+        t0 = time.perf_counter()
+        ys, metrics = self._advance(1, ext_vad_prob, ext_vad_avail)
+        launched = (self._fetch(ys), metrics)
+        delivered = None
+        if self._inflight is not None:
+            delivered = self._land(self._inflight)
+        self._inflight = launched
+        self._record_time(t0, 1)
+        return delivered
+
+    def _land(self, inflight):
+        fetch, metrics = inflight
+        self._deliver(self._landed(fetch), 1)
+        self._last_metrics = metrics
+        return metrics
+
+    def flush_pipeline(self):
+        """Deliver the block :meth:`step_pipelined` left in flight."""
+        if self._inflight is None:
+            return None
+        inflight, self._inflight = self._inflight, None
+        return self._land(inflight)
+
     def step_many(self, n_blocks: int, ext_vad_prob=None, ext_vad_avail=None):
-        """Advance every stream by ``n_blocks`` blocks, delivering them
-        together. Returns the final block's per-slot metrics."""
+        """Advance every stream by ``n_blocks`` blocks: the span's input is
+        staged on the device once, the step runs once per block, and the
+        output comes back in one copy and is delivered together. Returns
+        the final block's per-slot metrics."""
         if n_blocks < 1:
             raise ValueError("n_blocks must be >= 1")
         t0 = time.perf_counter()
-        x, active, reset, params = self._gather(n_blocks)
-        vp, va = self._ext_vad(ext_vad_prob, ext_vad_avail)
-        self._state, ys, metrics = _serving_scan(
-            self.config, params, self._state, self._fresh, x, active, reset,
-            vp, va)
-        self._deliver(ys.cpu().numpy(), n_blocks)
+        ys, metrics = self._advance(n_blocks, ext_vad_prob, ext_vad_avail)
+        self._deliver(self._landed(self._fetch(ys)), n_blocks)
         self._last_metrics = metrics
-        self.steps += n_blocks
-        self.last_step_seconds = time.perf_counter() - t0
-        self._step_times.extend([self.last_step_seconds / n_blocks] * n_blocks)
+        self._record_time(t0, n_blocks)
         return metrics
 
     def _deliver(self, ys, n_blocks: int) -> None:
@@ -448,6 +677,44 @@ class ServingEngine:
             if s.sink is not None:
                 for b in range(n_blocks):
                     s.sink(ys[b, i])
+
+    def run_blocks(self, n_blocks: int) -> None:
+        for _ in range(n_blocks):
+            self.step()
+
+    # ------------------------------------------------------------ free-run
+    def start(self) -> None:
+        """Run the free-run loop on a thread of its own until :meth:`stop`."""
+        if self._running:
+            return
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._running = False
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None
+        self.flush_pipeline()
+
+    def _loop(self):
+        """Free-run loop: :meth:`step_pipelined` by default (the host
+        delivers block t-1 while the card runs block t), :meth:`step` when
+        ``pipelined_loop`` is False; with ``realtime_pacing`` one block per
+        10 ms of audio."""
+        period = BLOCK / self.config.chain.sample_rate
+        advance = self.step_pipelined if self.pipelined_loop else self.step
+        next_t = time.perf_counter()
+        while self._running:
+            advance()
+            if self.realtime_pacing:
+                next_t += period
+                delay = next_t - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                else:
+                    next_t = time.perf_counter()
 
     # --------------------------------------------------------- diagnostics
     def stream_diagnostics(self, slot: int) -> dict:
@@ -499,6 +766,7 @@ class ServingEngine:
             "last_step_seconds": self.last_step_seconds,
             "suppressor_model": self.config.suppressor_model,
             "vad_enabled": self.config.vad_enabled,
-            "device": str(self.device),
+            "realtime_pacing": self.realtime_pacing,
+            "pipelined_loop": self.pipelined_loop,
             "step_latency": self.latency_histogram(),
         }

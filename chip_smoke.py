@@ -26,22 +26,34 @@ of which stops the script with a non-zero exit when it fails:
    lookahead-limiter- and true-peak-limiter-shaped inputs; then, as
    information, the time per call of both limiter stages and of the three
    block-level torch stages that have no kernel yet (limiter window max,
-   true-peak polyphase FIR, hum oscillator bank);
+   true-peak polyphase FIR, hum oscillator bank), the first two with their
+   bound and the time of the one PyTorch call that computes each;
 3. default path: the serving engine at fleet 1024 (RNNoise + default live
-   chain) through one warm-up step, then 5 x step() and step_many(10) with
-   the launch counts read over those 15 blocks: finite output within the
-   limiter ceiling, and every on-path kernel launched its expected count per
-   block;
+   chain), whose first step captures its CUDA graph (capture time, nodes,
+   kernel launches per replay), then 5 x step() and step_many(10) with the
+   launch counts read over those 15 blocks: finite output within the limiter
+   ceiling, and every on-path kernel launched its expected count per block;
+   then, as information, a layer split (the eager step on copies of the
+   engine's buffers), 1,000 step() calls (p50, p99, max), step_many spans,
+   1,000 step_pipelined() calls, the replay alone on the card, the graph's
+   state copy-back and the peak device memory;
 4. full live chain: the engine at fleet 1024 with strong cleanup and the
    de-esser for 60 blocks (two hum windows complete): launches per block,
    finite output within the ceiling, hum detected on the hum streams, de-esser
-   reduction on the sibilant streams, seconds per block and a layer split;
-5. card against CPU: the same 4-stream engines on the card and on the CPU
-   (plain twins), default path for 10 blocks and full chain for 27 blocks
-   (a hum window completes);
-6. profile (information): a ``torch.profiler`` reading of 3 steps on each
-   path at fleet 1024: CUDA kernels per step, the card's busy share and the
-   kernels that take the most time.
+   reduction on the sibilant streams; then the same information as [3];
+5. card against CPU: the same 4-stream engines on the card (graph replays)
+   and on the CPU (plain twins), default path for 10 blocks, adaptive
+   release for 10 and full chain for 27 blocks (a hum window completes);
+6. profile (information): a ``torch.profiler`` reading of 3 graph replays
+   (step() calls) on each path at fleet 1024: CUDA kernels per step, the
+   card's busy share and the kernels that take the most time;
+7. graph against eager: the full chain at fleet 1024 for 60 blocks with an
+   attach, a slot reset, a control write, suppressor writes and staged EQ
+   programs mid-run, through the engine's graph replays and through
+   ``_serving_step`` called eagerly on the card on the same inputs: every
+   block's output and the final state ``torch.equal``; and a second engine
+   through step_pipelined() + flush_pipeline() delivers the same blocks as
+   step().
 
 The line before the last is a JSON object with every kernel's launches on
 the full-chain run, error against its twin (the worst over its
@@ -52,6 +64,8 @@ kernels of two checkouts on phase [2]'s inputs (:func:`timed_calls`).
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import json
 import subprocess
 import sys
@@ -59,6 +73,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 BLOCK = 480
 FLEET = 1024
@@ -75,6 +90,8 @@ NO_SPILL_KERNELS = ("biquad_cascade_kernel", "deesser_scan_kernel",
                     "compressor_scan_kernel", "gate_scan_kernel", "cleanup_scan_kernel",
                     "max_affine_scan_kernel", "limiter_gain_scan_kernel")
 CHUNKED_BLOCK = 2 * BLOCK   # every tiled kernel but biquad_cascade runs it as two chunks
+TIMED_CALLS = 1000          # step() and step_pipelined() calls timed per path: ten beyond the p99
+TIMED_SPAN = 50             # blocks of audio queued at a time while timing; step_many's span
 
 
 def fail(msg: str) -> None:
@@ -850,7 +867,9 @@ def phase2_torch_stages(card: str) -> None:
     block-level stages that are vectorised torch with no kernel of their own
     yet, with their calls per block: eager (CUDA events around back-to-back
     calls, the host's launch cost included) and on the card alone (a CUDA
-    graph of the calls, replayed)."""
+    graph of the calls, replayed); for the window max and the true-peak FIR
+    also their bound and the card's time of the one PyTorch call that
+    computes each (a yardstick; the port does not call it)."""
     from audioforge_tpu_torch.ops import limiter, routing, scan, true_peak
 
     rng = np.random.default_rng(23)
@@ -879,6 +898,30 @@ def phase2_torch_stages(card: str) -> None:
         device_ms, eager_ms = kernel_times(fn)
         print(f"[2] torch stage (info, {card}): {name}: eager {eager_ms:.4f} ms per call, "
               f"{device_ms:.4f} ms on the card; {calls}", flush=True)
+    # the one PyTorch call that computes each of the first two, and their
+    # bounds: each input read once, the output written once; the window max
+    # as three comparisons per sample (van Herk / Gil-Werman), the FIR as 4 x
+    # 32 multiply-adds and the |.| maximum over the four phases and the sample
+    n_out = FLEET * BLOCK
+    taps = torch.tensor(true_peak._FIR_OLDEST_FIRST.T.copy(), device=DEVICE)[:, None]
+    library = (
+        ("limiter window max", "F.max_pool1d",
+         lambda: F.max_pool1d(ext[:, None], W + 1, stride=1)[:, 0],
+         lambda: scan.sliding_window_max(ext, W + 1)[:, W:],
+         bound(4 * FLEET * (W + BLOCK) + 4 * n_out, f32_ops=3 * n_out)),
+        ("true-peak 4x32 polyphase FIR", "F.conv1d (the FIR product alone)",
+         lambda: F.conv1d(tp_ext[:, None], taps),
+         lambda: torch.matmul(tp_ext.unfold(-1, true_peak.TAPS_PER_PHASE, 1),
+                              true_peak._fir(tp_ext.device)).transpose(1, 2),
+         bound(4 * FLEET * (true_peak._H + BLOCK) + 4 * n_out,
+               f32_ops=n_out * (2 * 4 * true_peak.TAPS_PER_PHASE + 9))),
+    )
+    for name, call, lib_fn, ours, (bound_ms, bound_by) in library:
+        err = (lib_fn() - ours()).abs().max().item()
+        lib_ms, _ = kernel_times(lib_fn)
+        print(f"[2] torch stage (info, {card}): {name}: {call} {lib_ms:.4f} ms on the card "
+              f"(max_abs_err against the stage's own arithmetic {err:.2e}); bound "
+              f"{bound_ms:.5f} ms ({bound_by})", flush=True)
 
 
 def timed_calls():
@@ -962,41 +1005,143 @@ def _check_per_block(counts: dict, per_block: dict, n_blocks: int, path: str) ->
               f"{path}: {name} {counts[name]} launches, expected {k} per block")
 
 
+def graph_nodes(graph) -> dict:
+    """Node counts by type of a captured CUDA graph (the engine keeps its
+    graph), read through libcuda (`cuGraphGetNodes`)."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(lib.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(lib.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
+    kinds, kind = collections.Counter(), ctypes.c_int()
+    names = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
+    for node in nodes:
+        check(lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds[names.get(kind.value, "other")] += 1
+    return {"nodes": count.value, **kinds}
+
+
+def print_capture(eng, card: str, tag: str) -> None:
+    print(f"{tag} step graph (info, {card}): captured in {eng.capture_seconds:.3f} s at the "
+          f"first step, {graph_nodes(eng._graph)}; kernel launches per replay "
+          f"{eng._graph_launches}", flush=True)
+
+
+def feed(eng, audio: np.ndarray) -> None:
+    """Queue ``audio [N, samples]`` on every slot."""
+    for i in range(eng.capacity):
+        eng.push(i, audio[i])
+
+
+def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str) -> None:
+    """Information, on the engine's graph replays: TIMED_CALLS step() calls
+    (p50, p99 and max from ``latency_histogram``), step_many spans of
+    TIMED_SPAN blocks, TIMED_CALLS step_pipelined() calls, the replay alone
+    on the card (CUDA events around back-to-back replays), the state
+    copy-back's share of it and the peak device memory since the engine was
+    built. ``audio`` (TIMED_SPAN blocks) is queued again every TIMED_SPAN
+    blocks, outside the timed calls."""
+    from audioforge_tpu_torch.runtime import serving as sv
+
+    def run(call, n_calls: int, blocks: int) -> dict:
+        eng._step_times.clear()
+        for i in range(n_calls):
+            if i * blocks % TIMED_SPAN == 0:
+                for o in outs:
+                    o.clear()
+                feed(eng, audio)
+            call()
+        eng.flush_pipeline()
+        torch.cuda.synchronize()
+        return eng.latency_histogram()
+
+    rate = lambda ms: FLEET * BLOCK / FS / (ms / 1e3)
+    for name, call, n_calls, blocks in (
+            ("step()", eng.step, TIMED_CALLS, 1),
+            (f"step_many({TIMED_SPAN}) per block", lambda: eng.step_many(TIMED_SPAN),
+             4, TIMED_SPAN),
+            ("step_pipelined()", eng.step_pipelined, TIMED_CALLS, 1)):
+        h = run(call, n_calls, blocks)
+        print(f"{tag} {name} x {h['samples']} blocks (info, {card}): p50 {h['p50_ms']:.3f} ms, "
+              f"p99 {h['p99_ms']:.3f} ms, max {h['max_ms']:.3f} ms; audio-sec/sec at fleet "
+              f"{FLEET} (p50) {rate(h['p50_ms']):.1f}", flush=True)
+    # where step()'s host time goes: the engine's stages on the host clock
+    # over TIMED_CALLS / 5 more calls (no synchronise added; "wait + copy" is the wait
+    # for the card's copy of the block and the copy the sinks keep)
+    split, calls = collections.Counter(), max(1, TIMED_CALLS // 5)
+    stages = {"gather": "_gather", "VAD staging": "_stage_vad", "replay launch": "_run",
+              "fetch": "_fetch", "wait + copy": "_landed", "sinks": "_deliver"}
+
+    def timed(label, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            split[label] += time.perf_counter() - t0
+            return out
+        return call
+
+    for label, attr in stages.items():
+        setattr(eng, attr, timed(label, getattr(eng, attr)))
+    try:
+        h = run(eng.step, calls, 1)
+    finally:
+        for attr in stages.values():
+            delattr(eng, attr)
+    total_ms = float(np.mean(eng._step_times)) * 1e3
+    parts = ", ".join(f"{label} {split[label] / calls * 1e3:.3f}" for label in stages)
+    print(f"{tag} step() host split, mean ms of {calls} calls (info, {card}): total "
+          f"{total_ms:.3f}: {parts}, the rest "
+          f"{total_ms - sum(split.values()) / calls * 1e3:.3f}", flush=True)
+    replay_ms = cuda_ms(eng._graph.replay, 50)
+    # the copy-back alone: a graph of _copy_into on the pairs one eager step
+    # gives, on copies of the state
+    state = sv._clone_tree(eng._state)
+    new_state, _, _ = sv._serving_step(eng.config, eng._params_dev, state, eng._fresh,
+                                       eng._x, eng._active, None, eng._vad_prob,
+                                       eng._vad_avail)
+    pairs = len(sv._leaf_pairs(state, new_state, []))
+    copy_ms, _ = kernel_times(lambda: sv._copy_into(state, new_state))
+    # the same step eagerly, back to back on a copy of the state (the
+    # per-block work of the step before it was captured, without staging
+    # and sinks)
+    eager_ms = cuda_ms(lambda: sv._serving_step(
+        eng.config, eng._params_dev, state, eng._fresh, eng._x, eng._active, None,
+        eng._vad_prob, eng._vad_avail), 10)
+    print(f"{tag} replay alone on the card (info, {card}): {replay_ms:.3f} ms per block, "
+          f"{rate(replay_ms):.1f} audio-sec/sec; the state copy-back ({pairs} leaves) "
+          f"{copy_ms:.4f} ms of it; the eager step {eager_ms:.3f} ms per block; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
+
+
 def phase3_default(card: str) -> dict:
     from audioforge_tpu_torch import kernels
 
     n_blocks = 15
-    audio = speech_like(FLEET, n_blocks + 1, 11)
+    audio = speech_like(FLEET, TIMED_SPAN, 11)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng, outs = _engine(FLEET, DEVICE, audio)
-    eng.step()  # warm-up: the first step pays the libraries' lazy set-up
+    eng.step()  # captures the step's graph
     torch.cuda.synchronize()
-    print(f"[3] engine at fleet {FLEET} built and warmed up in "
+    print(f"[3] engine at fleet {FLEET} built and its first step run in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print_capture(eng, card, "[3]")
     kernels.reset_launch_counts()
-    step_s = []
     for _ in range(5):
-        t0 = time.perf_counter()
         eng.step()
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    t_step = float(np.mean(step_s))
-    t0 = time.perf_counter()
     eng.step_many(10)
     torch.cuda.synchronize()
-    t_many = (time.perf_counter() - t0) / 10
     counts = dict(kernels.launch_counts)
     print(f"[3] default path, launches over {n_blocks} blocks: {counts}", flush=True)
     peak = _check_output(outs, n_blocks + 1, FLEET)
     _check_per_block(counts, {"biquad_cascade": 5, "limiter_gain_scan": 2,
                               "compressor_scan": 1, "gate_scan": 1}, n_blocks,
                      "default path")
-    print(f"[3] output finite, peak {peak:.4f} within the ceiling; seconds per block "
-          f"(info, {card}): step() mean {t_step:.4f} median {np.median(step_s):.4f} "
-          f"max {max(step_s):.4f}, step_many(10) {t_many:.4f}; "
-          f"audio-sec/sec at fleet {FLEET}: {FLEET * BLOCK / FS / t_step:.1f} (step), "
-          f"{FLEET * BLOCK / FS / t_many:.1f} (step_many)", flush=True)
+    print(f"[3] output finite, peak {peak:.4f} within the ceiling", flush=True)
     layer_split(eng, card, "[3]")
+    time_paths(eng, outs, audio, card, "[3]")
     return counts
 
 
@@ -1004,23 +1149,18 @@ def phase4_full_chain(card: str) -> dict:
     from audioforge_tpu_torch import kernels
 
     audio = mic_capture(FLEET, FULL_BLOCKS, 16)
+    torch.cuda.reset_peak_memory_stats()
     eng, outs = _engine(FLEET, DEVICE, audio, full_chain())
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
     for _ in range(FULL_BLOCKS // 2 - 5):
-        eng.step_many(2)
-    torch.cuda.synchronize()
-    t_many = (time.perf_counter() - t0) / (FULL_BLOCKS - 10)
-    step_s = []
+        eng.step_many(2)  # the first call captures the step's graph
     for _ in range(10):
-        t0 = time.perf_counter()
         m = eng.step()
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    t_step = float(np.mean(step_s))
+    torch.cuda.synchronize()
     counts = dict(kernels.launch_counts)
     print(f"[4] full chain (strong cleanup + de-esser), launches over {FULL_BLOCKS} "
           f"blocks: {counts}", flush=True)
+    print_capture(eng, card, "[4]")
     _check_per_block(counts, {"biquad_cascade": 5, "limiter_gain_scan": 2,
                               "compressor_scan": 1, "gate_scan": 1,
                               "deesser_scan": 1, "cleanup_scan": 1}, FULL_BLOCKS,
@@ -1038,18 +1178,17 @@ def phase4_full_chain(card: str) -> dict:
     check(bool(hum[cls == 0].all() and hum[cls == 1].all()),
           "hum not detected on every hum stream")
     check(bool((red[cls == 2] > 0).all()), "no de-esser reduction on a sibilant stream")
-    print(f"[4] output finite, peak {peak:.4f} within the ceiling; seconds per block "
-          f"(info, {card}): step() mean {t_step:.4f} median {np.median(step_s):.4f} "
-          f"max {max(step_s):.4f}, step_many(2) {t_many:.4f}; "
-          f"audio-sec/sec at fleet {FLEET}: {FLEET * BLOCK / FS / t_step:.1f} (step), "
-          f"{FLEET * BLOCK / FS / t_many:.1f} (step_many)", flush=True)
+    print(f"[4] output finite, peak {peak:.4f} within the ceiling", flush=True)
     layer_split(eng, card, "[4]")
+    time_paths(eng, outs, audio[:, :TIMED_SPAN * BLOCK], card, "[4]")
     return counts
 
 
 def layer_split(eng, card: str, tag: str) -> None:
-    """Seconds of one more step() by layer, with a device synchronise
-    around each timed stage (information only)."""
+    """Seconds of one step by layer, with a device synchronise around each
+    timed stage (information only). A graph replay does not see Python
+    wrappers, so this runs ``_serving_step`` eagerly on copies of the
+    engine's buffers."""
     from audioforge_tpu_torch.ops import deesser, gate, routing
     from audioforge_tpu_torch.runtime import live_chain as lc
     from audioforge_tpu_torch.runtime import serving as sv
@@ -1070,30 +1209,94 @@ def layer_split(eng, card: str, tag: str) -> None:
             return out
         return run
 
+    state = sv._clone_tree(eng._state)
     for (mod, name), fn in originals.items():
         setattr(mod, name, timed(name, fn))
     try:
-        for slot in range(eng.capacity):
-            eng.push(slot, np.zeros(BLOCK, np.float32))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.step()
+        sv._serving_step(eng.config, eng._params_dev, state, eng._fresh, eng._x,
+                         eng._active, None, eng._vad_prob, eng._vad_avail)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
         for (mod, name), fn in originals.items():
             setattr(mod, name, fn)
     g = lambda k: seconds.get(k, 0.0)
-    print(f"{tag} one step() by layer (info, {card}): total {total:.4f} s; front "
+    print(f"{tag} one eager _serving_step by layer, on copies of the engine's buffers "
+          f"(info, {card}): total {total:.4f} s; front "
           f"{g('front_block'):.4f} (routing {g('routing_process'):.4f}, gate "
           f"{g('gate_process'):.4f}), rnnoise {g('_supp_step'):.4f}, back "
           f"{g('back_block'):.4f} (de-esser {g('deesser_process'):.4f})", flush=True)
+    card_split(eng, card, tag)
+
+
+def card_split(eng, card: str, tag: str) -> None:
+    """The card's time per block of the stages ROADMAP queue 2 items 2-5
+    would put into kernels, from a ``torch.profiler`` reading of one eager
+    ``_serving_step`` on copies of the engine's buffers with each stage under
+    a ``record_function`` range (the device time of the kernels launched in
+    it; information only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from audioforge_tpu_torch.models import rnnoise, vad_gate
+    from audioforge_tpu_torch.ops import compressor, limiter, loudness, routing, true_peak
+    from audioforge_tpu_torch.runtime import serving as sv
+
+    stages = [(rnnoise, "rnnoise_frame", "K9 RNNoise frame"),
+              (true_peak, "_interp_peaks", "K6/K7 true-peak FIR"),
+              (limiter, "sliding_window_max", "K6/K7 limiter window max"),
+              (routing, "_hum_analysis", "K13b hum analysis"),
+              (routing, "meter_block_stats", "K12 block meters"),
+              (loudness, "meter_process", "K12 K-weighted loudness"),
+              (vad_gate, "vad_gate_process", "K12 VAD auto-gate"),
+              (compressor, "finalize_block", "K12 compressor finalize"),
+              (routing, "sanitize_and_clamp_input", "K12 sanitize and clamp"),
+              (routing, "sanitize_and_clamp_output", "K12 sanitize and clamp")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
+
+    def ranged(label, fn):
+        def run(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return run
+
+    state = sv._clone_tree(eng._state)
+    for (mod, name, label), (_, _, fn) in zip(stages, originals):
+        setattr(mod, name, ranged(label, fn))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sv._serving_step(eng.config, eng._params_dev, state, eng._fresh, eng._x,
+                             eng._active, None, eng._vad_prob, eng._vad_avail)
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    # a range's device time is its kernels' (the GPU-side span of the same
+    # name, which covers the idle time between them, is left out); a range
+    # nested in another counts in both
+    events, labels = prof.events(), {label for _, _, label in stages}
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    by_label = collections.Counter()
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in labels:
+            by_label[e.name] += e.device_time_total / 1e3
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in by_label.most_common())
+    print(f"{tag} card time of one eager step by stage, ms of kernels (info, {card}): "
+          f"all kernels {total:.3f}; {parts}", flush=True)
 
 
 def phase5_card_vs_cpu() -> None:
+    from audioforge_tpu_torch.runtime import live_chain as lc
+
     n = 4
     for name, chain, n_blocks, audio in (
             ("default path", None, 10, speech_like(n, 10, 12)),
+            ("adaptive release", lc.LiveChainConfig(adaptive_release=True), 10,
+             speech_like(n, 10, 13)),
             ("full chain", full_chain(), 27, mic_capture(n, 27, 17))):
         ys, periods, hum = {}, {}, {}
         for device in (DEVICE, "cpu"):
@@ -1136,9 +1339,10 @@ SOURCES = {
 }
 
 def phase6_profile(card: str) -> None:
-    """CUDA kernels per ``step()`` and the card's busy share over 3 steps at
-    fleet 1024, default path and full chain, from a ``torch.profiler`` trace
-    (kernel rows only)."""
+    """CUDA kernels per ``step()`` (one graph replay each) and the card's busy
+    share over 3 steps at fleet 1024, default path and full chain, from a
+    ``torch.profiler`` trace (device rows only); beside it the replay alone
+    on the card from CUDA events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1158,10 +1362,11 @@ def phase6_profile(card: str) -> None:
                       key=lambda e: -e.self_device_time_total)
         launches = sum(e.count for e in rows) / 3
         busy_s = sum(e.self_device_time_total for e in rows) / 1e6
-        print(f"[6] {name} ({card}): {launches:.0f} CUDA kernels per step(); kernel "
-              f"time {busy_s / 3 * 1e3:.2f} ms of {wall / 3 * 1e3:.2f} ms per profiled "
-              f"step, busy share {busy_s / wall:.3f}", flush=True)
-        for e in rows[:8]:
+        print(f"[6] {name} ({card}): {launches:.0f} CUDA kernels per step() (graph "
+              f"replay); kernel time {busy_s / 3 * 1e3:.2f} ms of {wall / 3 * 1e3:.2f} ms "
+              f"per profiled step, busy share {busy_s / wall:.3f}; the replay alone "
+              f"{cuda_ms(eng._graph.replay, 20):.3f} ms on the card (CUDA events)", flush=True)
+        for e in rows[:12]:
             print(f"    {e.self_device_time_total / 3e3:8.3f} ms/step {e.count // 3:6d}x  "
                   f"{e.key[:90]}")
         own = [e for e in rows if any(f"{name}_kernel" in e.key for name in SOURCES)]
@@ -1170,6 +1375,117 @@ def phase6_profile(card: str) -> None:
         for e in own:
             print(f"    {e.self_device_time_total / 3e3:8.4f} ms/step {e.count // 3:6d}x  "
                   f"{e.key[:60]}")
+
+
+def _tree_diff(a: dict, b: dict, path: str = "") -> list:
+    """Paths of the leaves of two trees of one layout that are not equal."""
+    out = []
+    for k, v in a.items():
+        if isinstance(v, dict):
+            out += _tree_diff(v, b[k], f"{path}.{k}")
+        elif not torch.equal(v, b[k]):
+            out.append(f"{path}.{k}")
+    return out
+
+
+def phase7_graph_vs_eager(card: str) -> None:
+    """The full chain at fleet 1024 over FULL_BLOCKS blocks, with events
+    before blocks 10-40: eight streams attach, a stream is detached and
+    attached again (a slot reset), a control write, two suppressor writes, an
+    EQ program staged on a running stream and one on a stream reset in the
+    same step (it lands a step later). Engine A steps with step(); beside it
+    ``_serving_step`` runs eagerly on the card on A's static inputs, the
+    reset passed as its mask and the staged EQ rows written into its state:
+    every block's output and the final state must be ``torch.equal``.
+    Engine B runs the same schedule through step_pipelined() and
+    flush_pipeline(): the same blocks, one call later, and the same final
+    state (the streams attached at block 10 are left out of the block check:
+    they also receive block 9, which is in flight when they attach)."""
+    from audioforge_tpu_torch.ops import eq
+    from audioforge_tpu_torch.runtime import serving as sv
+
+    late = 8
+    audio = mic_capture(FLEET, FULL_BLOCKS, 31)
+    boost = [eq.EqBandConfig(b.filter_type, b.frequency_hz, 6.0 if i == 6 else 0.0, 1.0)
+             for i, b in enumerate(eq.default_bands())]
+
+    def build():
+        eng = sv.ServingEngine(sv.ServingConfig(capacity=FLEET, chain=full_chain()),
+                               device=DEVICE)
+        outs = [[] for _ in range(FLEET)]
+        for i in range(FLEET - late):
+            attach(eng, outs, 0)
+        return eng, outs
+
+    def attach(eng, outs, b):
+        """Attach the first free slot with its audio from block ``b``."""
+        slot = next(i for i, s in enumerate(eng._slots) if not s.active)
+        check(eng.attach(sink=outs[slot].append) == slot, "attach took another slot")
+        eng.push(slot, audio[slot, b * BLOCK:])
+        return slot
+
+    def events(eng, outs, b):
+        if b == 10:
+            for _ in range(late):
+                attach(eng, outs, b)
+        elif b == 20:
+            eng.detach(5)
+            check(attach(eng, outs, b) == 5, "slot 5 was not reused")
+        elif b == 25:
+            eng.set_stream_params(3, compressor_threshold_db=-45.0, limiter_ceiling_db=-6.0)
+        elif b == 30:
+            eng.set_stream_suppressor(7, strength=0.4)
+            eng.set_stream_suppressor(9, enabled=False)
+        elif b == 35:
+            eng.set_stream_eq(11, boost)
+        elif b == 40:
+            eng.detach(13)
+            check(attach(eng, outs, b) == 13, "slot 13 was not reused")
+            eng.set_stream_eq(13, boost)
+
+    eng, outs = build()
+    ref = sv._clone_tree(eng._state)
+    apart = []
+    t0 = time.perf_counter()
+    for b in range(FULL_BLOCKS):
+        events(eng, outs, b)
+        reset = eng._reset_pending.copy()
+        staged = {s: tree for s, tree in eng._pending_eq.items() if not reset[s]}
+        eng.step()
+        for slot, tree in staged.items():
+            ref["chain"]["eq"] = {k: v.clone() for k, v in ref["chain"]["eq"].items()}
+            for k, row in tree.items():
+                ref["chain"]["eq"][k][slot] = row[0].to(DEVICE)
+        mask = torch.from_numpy(reset).to(DEVICE) if reset.any() else None
+        ref, y_ref, _ = sv._serving_step(eng.config, eng._params_dev, ref, eng._fresh, eng._x,
+                                         eng._active, mask, eng._vad_prob, eng._vad_avail)
+        y = eng._graph_out[0]
+        if not torch.equal(y, y_ref):
+            apart.append((b, (y - y_ref).abs().max().item()))
+    torch.cuda.synchronize()
+    state_apart = _tree_diff(ref, eng._state)
+    eq_rows = eng._state["chain"]["eq"]["coeffs"]
+    print(f"[7] graph against eager, full chain at fleet {FLEET}, {FULL_BLOCKS} blocks with "
+          f"attach, reset, control, suppressor and EQ writes ({time.perf_counter() - t0:.1f} "
+          f"s, {card}): blocks whose y differs {apart}; state leaves that differ "
+          f"{state_apart}", flush=True)
+    check(not apart and not state_apart, "the graph replay and the eager step differ")
+    check(not eng._pending_eq and not torch.equal(eq_rows[11], eq_rows[12])
+          and torch.equal(eq_rows[11], eq_rows[13]), "the staged EQ programs did not land")
+
+    pipe, pipe_outs = build()
+    for b in range(FULL_BLOCKS):
+        events(pipe, pipe_outs, b)
+        pipe.step_pipelined()
+    pipe.flush_pipeline()
+    kept = range(FLEET - late)
+    same = all(np.array_equal(np.concatenate(pipe_outs[i]), np.concatenate(outs[i]))
+               for i in kept)
+    state_apart = _tree_diff(pipe._state, eng._state)
+    print(f"[7] step_pipelined + flush_pipeline against step(): {len(kept)} streams "
+          f"{'equal' if same else 'DIFFER'} over {FULL_BLOCKS} blocks; state leaves that "
+          f"differ {state_apart}", flush=True)
+    check(same and not state_apart, "step_pipelined delivers other blocks than step()")
 
 
 def main() -> int:
@@ -1185,6 +1501,7 @@ def main() -> int:
     counts = phase4_full_chain(card)
     phase5_card_vs_cpu()
     phase6_profile(card)
+    phase7_graph_vs_eager(card)
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
               "launches": counts[name], **res.rows[name]}
              for name, (src, rep) in SOURCES.items()]
