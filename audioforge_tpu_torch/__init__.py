@@ -1,8 +1,9 @@
 """audioforge_tpu_torch — the PyTorch + CUDA port of audioforge_tpu.
 
-The multi-stream serving step (live chain front half, RNNoise, back half)
-runs on an NVIDIA GPU, with the per-sample recurrences in hand-written CUDA
-kernels (``csrc/``, built with ``nvcc`` at first use into
+The multi-stream serving step (in-step Silero VAD, live chain front half,
+RNNoise or DeepFilterNet3, back half) runs on an NVIDIA GPU, with the
+per-sample recurrences and the models' per-stream element work in
+hand-written CUDA kernels (``csrc/``, built with ``nvcc`` at first use into
 ``build/audioforge_tpu_torch/``). On a CPU tensor every kernel wrapper runs
 its plain PyTorch twin instead. The JAX package stays the reference; this
 package imports neither ``jax`` nor ``audioforge_tpu``.

@@ -1,8 +1,8 @@
 """Command line: ``python -m audioforge_tpu_torch serve a.wav b.wav ...``
 
 Processes N 48 kHz mono 16-bit WAVs together through the batched serving
-engine (live chain + RNNoise per stream) and writes ``<name>.processed.wav``
-for each.
+engine (live chain and a suppressor per stream, the in-step Silero VAD with
+``--vad``) and writes ``<name>.processed.wav`` for each.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ def _cmd_serve(args) -> int:
     cfg = ServingConfig(
         capacity=len(paths),
         suppressor_model=None if args.suppressor == "none" else args.suppressor,
+        vad_enabled=args.vad,
         chain=lc.LiveChainConfig(deesser_enabled=args.deesser))
     engine = ServingEngine(cfg, device=args.device)
     outputs = [[] for _ in paths]
@@ -86,7 +87,9 @@ def main(argv=None) -> int:
     serve.add_argument("--device", default="cuda",
                        help="torch device: cuda (default) or cpu")
     serve.add_argument("--suppressor", default="rnnoise",
-                       choices=("none", "rnnoise"))
+                       choices=("none", "rnnoise", "deepfilter-ll", "deepfilter"))
+    serve.add_argument("--vad", action="store_true",
+                       help="run the batched in-step Silero VAD")
     serve.add_argument("--deesser", action="store_true")
     serve.add_argument("--span", type=int, default=100,
                        help="blocks per step_many call")

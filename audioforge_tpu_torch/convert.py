@@ -10,6 +10,10 @@ differences of layout:
 - the owned adaptive high-pass is a one-section cascade here, so its leaves
   carry a section axis (``[N, 1, ...]``).
 
+The VAD group (``vad``) and the DeepFilterNet3 model states have the same
+leaves in both packages. :func:`rnnoise_weights`, :func:`silero_weights` and
+:func:`dfn_weights` validate a model's weight arrays and make them tensors.
+
 :func:`serving_state`, :func:`routing_state` and :func:`chain_params` map
 numpy trees (for example ``jax.tree_util.tree_map(np.asarray, tree)``) to
 tensors; :func:`to_numpy` and :func:`routing_to_numpy` map a port state
@@ -21,9 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models import rnnoise
+from .models import dfn3, rnnoise, silero
 
-__all__ = ["rnnoise_weights", "chain_params", "serving_state", "routing_state",
+__all__ = ["rnnoise_weights", "silero_weights", "dfn_weights", "chain_params", "serving_state", "routing_state",
            "to_numpy", "routing_to_numpy"]
 
 # (path inside the routing state) -> leaves held in f64 by the port
@@ -65,6 +69,25 @@ def rnnoise_weights(arrays: dict, device="cpu") -> dict:
     return rnnoise.weights_from_numpy(arrays, device)
 
 
+def silero_weights(arrays: dict, device="cpu") -> dict:
+    """Silero VAD weight dict (numpy) -> validated f32 tensors."""
+    return silero.weights_from_numpy(arrays, device)
+
+
+def dfn_weights(arrays: dict, device="cpu") -> dict:
+    """DeepFilterNet3 weight dict (numpy, either variant) -> validated f32
+    tensors."""
+    return dfn3.weights_from_numpy(arrays, device)
+
+
+def _has(tree, path) -> bool:
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return False
+        tree = tree[k]
+    return True
+
+
 def chain_params(tree, device="cpu") -> dict:
     """Stacked live-chain controls (``[N]`` numpy leaves) -> tensors."""
     return _tree_to_torch(tree, device)
@@ -91,7 +114,7 @@ def serving_state(tree, device="cpu") -> dict:
     chain["eq"] = {k: torch.cat([eq["lo"][k], eq["hi"][k]], dim=1).contiguous()
                    for k in eq["lo"]}
     for path in _F64_LEAVES:
-        if path[0] in out:
+        if _has(out, path):
             _set(out, path, _get(out, path).to(torch.float64))
     return out
 

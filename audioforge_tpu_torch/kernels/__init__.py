@@ -38,6 +38,8 @@ __all__ = [
     "library",
     "launch",
     "check_tensor",
+    "check_aligned",
+    "scalar",
     "stream_of",
 ]
 
@@ -53,7 +55,7 @@ NVCC_FLAGS = (
 # and flip a decision (the limiter form of max_affine_scan compares its target
 # with the gain of the sample before).
 NO_FMA_SOURCES = ("cleanup_scan.cu", "deesser_scan.cu", "gate_scan.cu",
-                  "max_affine_scan.cu")
+                  "max_affine_scan.cu", "silero_lstm.cu")
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # kernel name -> (C entry point, argtypes); every entry returns cudaError_t
@@ -77,6 +79,10 @@ KERNELS = {
     "cleanup_scan": (
         "afk_cleanup_scan",
         (_P,) * 12 + (_I, _I, _F, _F, _F, _I, _I, _D, _P)),
+    "vad_front": ("afk_vad_front", (_P,) * 7 + (_I, _P)),
+    "vad_lstm_head": ("afk_vad_lstm_head", (_P,) * 14 + (_I, _I, _P)),
+    "dfn_features": ("afk_dfn_features", (_P,) * 8 + (_I, _F, _F, _P)),
+    "dfn_spec_synth": ("afk_dfn_spec_synth", (_P,) * 8 + (_I, _P)),
 }
 
 # launches per kernel since the last reset, counted where the kernel launches
@@ -183,6 +189,20 @@ def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor is not contiguous")
+
+
+def check_aligned(name: str, t: torch.Tensor, alignment: int) -> None:
+    """Raise unless ``t``'s data starts on an ``alignment``-byte boundary (a
+    kernel reads it as float2 or float4)."""
+    if t.data_ptr() % alignment:
+        raise ValueError(f"{name}: data is not {alignment}-byte aligned")
+
+
+def scalar(v, device) -> torch.Tensor:
+    """``v`` as a 0-d f32 tensor on ``device``; a kernel reads a control the
+    serving engine keeps on the device through its pointer. A tensor already
+    of that type and place is returned as it is."""
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
 def stream_of(device: torch.device) -> int:

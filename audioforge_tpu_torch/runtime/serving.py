@@ -1,13 +1,16 @@
 """Multi-stream serving: N live streams advanced together, one block a step.
 
 Counterpart of ``audioforge_tpu/runtime/serving.py``. Each step advances
-every slot by one 480-sample block through the live chain's front half, the
-frame-synchronous RNNoise suppressor and the back half. Slots are a fixed
-capacity; attaching a stream marks its slot for a reset that blends fresh
-state in before the block; detached slots process silence and their output
-is dropped. Suppressor failures are per-slot state: a non-finite model
-output falls back to the latency-aligned dry signal, and three such events
-within 2 s soft-reset the model state (2 s cooldown).
+every slot by one 480-sample block through the in-step Silero VAD (when
+``vad_enabled``), the live chain's front half, the frame-synchronous
+suppressor (RNNoise, DeepFilterNet3-LL or the standard DeepFilterNet3) and
+the back half. Slots are a fixed capacity; attaching a stream marks its slot
+for a reset that blends fresh state in before the block; detached slots
+process silence and their output is dropped. Suppressor failures are
+per-slot state: a non-finite model output falls back to the latency-aligned
+dry signal (one block behind, three for the standard DeepFilterNet3), three
+such events within 2 s soft-reset the model state (2 s cooldown), and the
+standard DeepFilterNet3 latches the slot to the dry signal for good.
 
 The engine keeps its inputs, controls and state in static buffers. On the
 card a block step is one replay of a CUDA graph of :func:`_serving_step`,
@@ -22,9 +25,8 @@ t-1 while block t runs; ``start`` runs the free-run loop.
 The engine runs on the card unless it is given ``device="cpu"``; without a
 CUDA device, building one for the card raises.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): in-step Silero VAD, the DeepFilterNet suppressors and stream-axis
-sharding.
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+stream-axis sharding.
 """
 
 from __future__ import annotations
@@ -38,8 +40,9 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..models import rnnoise
+from ..models import dfn3, rnnoise, silero
 from ..ops import eq as eq_ops
+from ..ops import resample
 from . import live_chain as lc
 
 __all__ = ["BLOCK", "ServingConfig", "ServingEngine"]
@@ -52,6 +55,9 @@ _RESET_COOLDOWN_BLOCKS = 200
 _STEP_TIME_HISTORY = 2048
 _LATENCY_BUCKETS_MS = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
 _SUPPRESSOR_MODELS = ("rnnoise", "deepfilter-ll", "deepfilter")
+
+# the VAD is warm after ceil(576 / 160) = 4 blocks of 160 16 kHz samples
+_VAD_WARMUP_BLOCKS = silero.VAD_WARMUP_BLOCKS
 
 
 @dataclass(frozen=True)
@@ -67,23 +73,26 @@ class ServingConfig:
         if (self.suppressor_model is not None
                 and self.suppressor_model not in _SUPPRESSOR_MODELS):
             raise ValueError(f"unknown suppressor model {self.suppressor_model!r}")
-        if self.suppressor_model not in (None, "rnnoise"):
-            raise NotImplementedError(
-                "DeepFilterNet suppressors are not ported yet (ROADMAP queue 1, "
-                "DFN3)")
-        if self.vad_enabled:
-            raise NotImplementedError(
-                "in-step Silero VAD is not ported yet (ROADMAP queue 1, in-step "
-                "Silero and decimate3)")
+
+
+def _model_state_init(config: ServingConfig, device) -> dict:
+    n, model = config.capacity, config.suppressor_model
+    if model == "rnnoise":
+        return rnnoise.rnnoise_state_init(n=n, device=device)
+    return dfn3.dfn_state_init(n=n, lookahead=model == "deepfilter", device=device)
 
 
 def _supp_state_init(config: ServingConfig, device) -> dict:
     n = config.capacity
     i = lambda: torch.zeros(n, dtype=torch.int32, device=device)
+    # the dry path is delayed by the model's latency: one frame, three for
+    # the standard DeepFilterNet3 (two frames of lookahead)
+    delay_blocks = 3 if config.suppressor_model == "deepfilter" else 1
     return {
-        "model": rnnoise.rnnoise_state_init(n=n, device=device),
+        "model": _model_state_init(config, device),
         "smoothed_strength": torch.ones(n, dtype=torch.float32, device=device),
-        "dry_delay": torch.zeros((n, 1, BLOCK), dtype=torch.float32, device=device),
+        "dry_delay": torch.zeros((n, delay_blocks, BLOCK), dtype=torch.float32,
+                                 device=device),
         "backend_failed": torch.zeros(n, dtype=torch.bool, device=device),
         "nonfinite_count": i(),
         "nonfinite_timer": i(),
@@ -92,11 +101,27 @@ def _supp_state_init(config: ServingConfig, device) -> dict:
     }
 
 
+def _vad_state_init(config: ServingConfig, device) -> dict:
+    n = config.capacity
+    return {
+        "window16": torch.zeros((n, silero.MODEL_INPUT_SIZE), dtype=torch.float32,
+                                device=device),
+        "dec3": resample.decimate3_init(n=n, device=device),
+        # stream-major [N, (h, c), 128]
+        "lstm": torch.zeros((n, silero._N_LAYERS, silero._STATE_DIM),
+                            dtype=torch.float32, device=device),
+        "smoothed": torch.zeros(n, dtype=torch.float32, device=device),
+        "blocks_seen": torch.zeros(n, dtype=torch.int32, device=device),
+    }
+
+
 def _serving_state_init(config: ServingConfig, device, eq_bands=None) -> dict:
     state = {"chain": lc.live_init(config.chain, eq_bands, n=config.capacity,
                                    device=device)}
     if config.suppressor_model is not None:
         state["supp"] = _supp_state_init(config, device)
+    if config.vad_enabled:
+        state["vad"] = _vad_state_init(config, device)
     return state
 
 
@@ -120,14 +145,22 @@ _SHARED = frozenset(("chain",) + p for p in lc.SHARED_LEAVES)
 
 
 def _supp_step(config: ServingConfig, sp, state, fresh_model, x):
-    """Frame-synchronous batched RNNoise with the per-slot failure latch,
-    soft reset (to ``fresh_model``) and one-frame dry delay. ``sp``:
-    {weights, strength [N], enabled [N], smoothing_coeff}. Returns
+    """The frame-synchronous batched suppressor with the per-slot failure
+    handling, soft reset (to ``fresh_model``) and the latency-aligned dry
+    delay. ``sp``: {weights, strength [N], enabled [N], smoothing_coeff} and,
+    for DeepFilterNet3, {atten_lim_db, post_filter_beta}. Returns
     (new_state, y, metrics)."""
-    scaled = torch.clamp(rnnoise.soft_clip(x) * rnnoise.PCM_SCALE,
-                         -rnnoise.PCM_MODEL_LIMIT, rnnoise.PCM_MODEL_LIMIT)
-    mstate, wet, aux = rnnoise.rnnoise_frame(sp["weights"], state["model"], scaled)
-    wet = wet / rnnoise.PCM_SCALE
+    model = config.suppressor_model
+    if model == "rnnoise":
+        scaled = torch.clamp(rnnoise.soft_clip(x) * rnnoise.PCM_SCALE,
+                             -rnnoise.PCM_MODEL_LIMIT, rnnoise.PCM_MODEL_LIMIT)
+        mstate, wet, aux = rnnoise.rnnoise_frame(sp["weights"], state["model"], scaled)
+        wet = wet / rnnoise.PCM_SCALE
+        model_vad = aux["vad"]
+    else:
+        mstate, wet, _ = dfn3.dfn_frame(sp["weights"], state["model"], x,
+                                        sp["atten_lim_db"], sp["post_filter_beta"])
+        model_vad = torch.zeros_like(x[:, 0])
 
     finite = torch.isfinite(wet).all(dim=-1)
     wet = torch.where(finite[:, None], torch.nan_to_num(wet), 0.0)
@@ -140,7 +173,9 @@ def _supp_step(config: ServingConfig, sp, state, fresh_model, x):
     mstate = _masked_reset(mstate, fresh_model, do_reset)
     count = torch.where(do_reset, 0, count)
     cooldown = torch.where(do_reset, _RESET_COOLDOWN_BLOCKS, cooldown)
-    failed = state["backend_failed"]  # RNNoise resets, it never latches
+    failed = state["backend_failed"]
+    if model == "deepfilter":  # the standard model latches for good
+        failed = failed | ~finite
 
     sm = (sp["strength"] * sp["smoothing_coeff"]
           + state["smoothed_strength"] * (1.0 - sp["smoothing_coeff"]))
@@ -160,20 +195,42 @@ def _supp_step(config: ServingConfig, sp, state, fresh_model, x):
         "suppressor_nonfinite": (~finite).to(torch.int32),
         "suppressor_soft_resets": soft_resets,
         "suppressor_backend_failed": failed,
-        "suppressor_vad_probability": aux["vad"],
+        "suppressor_vad_probability": model_vad,
     }
     return new_state, y, metrics
+
+
+def _vad_step(sp, state, x):
+    """In-step Silero: decimate the block to 16 kHz, roll it into the
+    576-sample window, one batched inference on the window times the
+    pre-gain, then the clip, the warm-up, the EMA and the calibration.
+    ``sp``: {weights, pre_gain, smoothing}. Returns (new_state,
+    probability [N], available [N])."""
+    w = sp["weights"]
+    hist, window, frames = silero.vad_front(x, state["dec3"]["hist"],
+                                            state["window16"], sp["pre_gain"])
+    gates = silero.vad_gates(w, frames, state["lstm"][:, 0])
+    lstm, smoothed, seen, prob, avail = silero.vad_lstm_head(
+        w, gates, state["lstm"], state["smoothed"], state["blocks_seen"],
+        sp["smoothing"], _VAD_WARMUP_BLOCKS)
+    new_state = {"window16": window, "dec3": {"hist": hist}, "lstm": lstm,
+                 "smoothed": smoothed, "blocks_seen": seen}
+    return new_state, prob, avail
 
 
 def _serving_step(config: ServingConfig, params, state, fresh, x, active,
                   reset_mask, ext_vad_prob, ext_vad_avail):
     """One block for every slot, a pure function of its arguments.
     ``reset_mask`` None skips the slot reset (the engine resets its static
-    state before the step instead)."""
+    state before the step instead). With ``vad_enabled`` the in-step
+    probability replaces the external one."""
     if reset_mask is not None:
         state = _masked_reset(state, fresh, reset_mask, _SHARED)
     x = torch.where(active[:, None], x, 0.0)
-    vad_prob, vad_avail = ext_vad_prob, ext_vad_avail
+    if config.vad_enabled:
+        vstate, vad_prob, vad_avail = _vad_step(params["vad"], state["vad"], x)
+    else:
+        vad_prob, vad_avail = ext_vad_prob, ext_vad_avail
 
     chain, y, fm = lc.front_block(config.chain, params["chain"], state["chain"],
                                   x, vad_prob, vad_avail)
@@ -191,6 +248,8 @@ def _serving_step(config: ServingConfig, params, state, fresh, x, active,
     new_state = {"chain": chain}
     if config.suppressor_model is not None:
         new_state["supp"] = sstate
+    if config.vad_enabled:
+        new_state["vad"] = vstate
     metrics = {**fm, **sm, **bm, "vad_probability": vad_prob,
                "vad_available": vad_avail}
     return new_state, y2, metrics
@@ -290,7 +349,8 @@ class ServingEngine:
     """
 
     def __init__(self, config: ServingConfig | None = None, *, device="cuda",
-                 eq_bands=None, sharding=None, rnnoise_weights=None):
+                 eq_bands=None, sharding=None, rnnoise_weights=None,
+                 dfn_weights=None, vad_weights=None):
         if sharding is not None:
             raise NotImplementedError(
                 "stream-axis sharding is not ported yet (ROADMAP queue 1, "
@@ -314,20 +374,34 @@ class ServingEngine:
         self._chain_kw = {}
         self._params = {"chain": _stack_tree(lc.live_params(self.config.chain), n)}
         weights = {}
-        if self.config.suppressor_model is not None:
-            if rnnoise_weights is None:
-                path = rnnoise.discover_model_path()
-                if path is None:
-                    raise FileNotFoundError(
-                        "no RNNoise weight archive: set RNNOISE_MODEL_PATH or "
-                        "provide models/rnnoise.npz")
-                rnnoise_weights = rnnoise.load_weights(path, dev)
-            weights["supp"] = {k: v.to(dev) for k, v in rnnoise_weights.items()}
+        model = self.config.suppressor_model
+        if model is not None:
+            if model == "rnnoise":
+                if rnnoise_weights is None:
+                    path = rnnoise.discover_model_path()
+                    if path is None:
+                        raise FileNotFoundError(
+                            "no RNNoise weight archive: set RNNOISE_MODEL_PATH or "
+                            "provide models/rnnoise.npz")
+                    rnnoise_weights = rnnoise.load_weights(path, dev)
+                supp_weights = rnnoise_weights
+            else:
+                supp_weights = dfn_weights or dfn3.default_params(model == "deepfilter-ll")
+            weights["supp"] = {k: v.to(dev) for k, v in supp_weights.items()}
             self._params["supp"] = {
                 "strength": np.ones(n, np.float32),
                 "enabled": np.ones(n, bool),
                 "smoothing_coeff": np.float32(1.0 - np.exp(-(BLOCK / 48000.0) / 0.015)),
             }
+            if model != "rnnoise":
+                self._params["supp"].update(
+                    atten_lim_db=np.float32(dfn3.DEFAULT_ATTEN_LIM_DB),
+                    post_filter_beta=np.float32(dfn3.DEFAULT_POST_FILTER_BETA))
+        if self.config.vad_enabled:
+            weights["vad"] = {k: v.to(dev) for k, v in
+                              (vad_weights or silero.default_params()).items()}
+            self._params["vad"] = {"pre_gain": np.float32(1.0),
+                                   "smoothing": np.float32(0.5)}
         # static inputs of the step: the control tree (written after a
         # control write), the block, the active mask and the external VAD
         self._params_static = _to_device(self._params, dev)

@@ -1,14 +1,14 @@
 """On-card smoke test of audioforge_tpu_torch (needs one CUDA GPU).
 
-Run from the root of the repository: ``python3 chip_smoke.py``. Phases, each
-of which stops the script with a non-zero exit when it fails:
+Run from the root of the repository: ``python3 chip_smoke.py``. Phases, in
+the order they run ([8]-[10] after [4]), each of which stops the script with
+a non-zero exit when it fails, and each followed by its wall-clock time:
 
 0. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device is a failure (there is no CPU path);
 1. build: compiles the CUDA kernels under audioforge_tpu_torch/csrc/ and
-   prints ptxas's registers and spills; a spill in biquad_cascade,
-   deesser_scan, compressor_scan, gate_scan, cleanup_scan, max_affine_scan
-   or limiter_gain_scan fails;
+   prints ptxas's registers and spills; a spill in any kernel but env_scan
+   fails;
 2. kernels: each kernel against its plain PyTorch twin on the card, at the
    shapes the serving path gives it, with its time on the card (a CUDA
    graph of the wrapper call, replayed), the eager call's and the plain
@@ -23,8 +23,10 @@ of which stops the script with a non-zero exit when it fails:
    blocks of 960 samples; cleanup_scan gentle and strong with the notches'
    crossfades in flight and strong with none, the rumble trigger firing on
    the quarter of the streams that carry a low thump; limiter_gain_scan on
-   lookahead-limiter- and true-peak-limiter-shaped inputs; then, as
-   information, the time per call of both limiter stages and of the three
+   lookahead-limiter- and true-peak-limiter-shaped inputs; the four kernels
+   of the model stages (vad_front, vad_lstm_head, dfn_features,
+   dfn_spec_synth, the last also with the post filter on), with the time of
+   ``torch._VF.lstm_cell`` beside vad_lstm_head; then, as information, the time per call of both limiter stages and of the three
    block-level torch stages that have no kernel yet (limiter window max,
    true-peak polyphase FIR, hum oscillator bank), the first two with their
    bound and the time of the one PyTorch call that computes each;
@@ -43,20 +45,35 @@ of which stops the script with a non-zero exit when it fails:
    reduction on the sibilant streams; then the same information as [3];
 5. card against CPU: the same 4-stream engines on the card (graph replays)
    and on the CPU (plain twins), default path for 10 blocks, adaptive
-   release for 10 and full chain for 27 blocks (a hum window completes);
+   release for 10, full chain for 27 blocks (a hum window completes) and the
+   three model paths for 10 (the VAD probability and the DeepFilterNet3
+   norms compared too);
 6. profile (information): a ``torch.profiler`` reading of 3 graph replays
-   (step() calls) on each path at fleet 1024: CUDA kernels per step, the
-   card's busy share and the kernels that take the most time;
+   (step() calls) on each of the five paths at fleet 1024: CUDA kernels per
+   step, the card's busy share and the kernels that take the most time;
 7. graph against eager: the full chain at fleet 1024 for 60 blocks with an
    attach, a slot reset, a control write, suppressor writes and staged EQ
    programs mid-run, through the engine's graph replays and through
    ``_serving_step`` called eagerly on the card on the same inputs: every
    block's output and the final state ``torch.equal``; and a second engine
    through step_pipelined() + flush_pipeline() delivers the same blocks as
-   step().
+   step(); then the DeepFilterNet3-LL path at fleet 1024 for 20 blocks with a
+   slot reset, graph against eager, ``torch.equal`` (held to 1e-5, naming
+   the blocks and leaves, where not equal);
+8. VAD-on path: bench.py's VAD cell (strong cleanup, de-esser, VAD-assisted
+   gate, RNNoise) with the in-step Silero VAD at fleet 1024, 16 blocks:
+   capture, launches per block, output finite within the ceiling, the
+   probability in [0, 1] and available from the 4th block on, the gate's
+   VAD branch open on the voiced streams the posterior calls voice and shut
+   on the quiet class; then [3]'s information over 200 timed calls;
+9. DeepFilterNet3-LL path and 10. the standard DeepFilterNet3 path, each
+   with the default chain at fleet 1024, 16 blocks: as [8], and the
+   noise-only class at suppressor strength 1 at least 10 dB below the same
+   class at strength 0.
 
-The line before the last is a JSON object with every kernel's launches on
-the full-chain run, error against its twin (the worst over its
+The line before the last is a JSON object with every kernel's launches (on
+the full-chain run; the model stages' kernels on their own paths' runs,
+the DeepFilterNet3 kernels summed over [9] and [10]), error against its twin (the worst over its
 configurations), times and bound (of its first configuration); the last
 line is ``{"ok": true, "device": {...}}``. compare_kernels.py times the
 kernels of two checkouts on phase [2]'s inputs (:func:`timed_calls`).
@@ -88,10 +105,14 @@ GATE_BLOCKS = 30            # gate_scan blocks per mode
 # kernels whose lane state must fit in registers (phase [1] fails on a spill)
 NO_SPILL_KERNELS = ("biquad_cascade_kernel", "deesser_scan_kernel",
                     "compressor_scan_kernel", "gate_scan_kernel", "cleanup_scan_kernel",
-                    "max_affine_scan_kernel", "limiter_gain_scan_kernel")
+                    "max_affine_scan_kernel", "limiter_gain_scan_kernel",
+                    "vad_front_kernel", "vad_lstm_head_kernel", "dfn_features_kernel",
+                    "dfn_spec_synth_kernel")
 CHUNKED_BLOCK = 2 * BLOCK   # every tiled kernel but biquad_cascade runs it as two chunks
 TIMED_CALLS = 1000          # step() and step_pipelined() calls timed per path: ten beyond the p99
 TIMED_SPAN = 50             # blocks of audio queued at a time while timing; step_many's span
+MODEL_TIMED_CALLS = 200     # step() and step_pipelined() calls timed on the model paths [8]-[10]
+MODEL_BLOCKS = 16           # blocks a model path runs before its timing (VAD warm after 4)
 
 
 def fail(msg: str) -> None:
@@ -226,7 +247,7 @@ class Results:
         self.rows = {}
 
     def report(self, name, err, tol, times, plain_ms, shape, bytes_moved,
-               f32_ops=0.0, f64_ops=0.0) -> float:
+               f32_ops=0.0, f64_ops=0.0, library_ms=None) -> float:
         """Print and check one configuration (``times`` from
         :func:`kernel_times`); returns its bound in ms."""
         ms, call_ms = times
@@ -237,7 +258,7 @@ class Results:
         check(np.isfinite(err) and err <= tol, f"{name} disagrees with its plain twin")
         row = self.rows.setdefault(name, {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "bound_by": bound_by, "library_ms": library_ms})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         return bound_ms
 
@@ -924,6 +945,134 @@ def phase2_torch_stages(card: str) -> None:
               f"{bound_ms:.5f} ms ({bound_by})", flush=True)
 
 
+def voice_and_noise(n: int, n_blocks: int, seed: int) -> np.ndarray:
+    """Four stream classes (i % 4) over noise at -34 dBFS, ``[n, n_blocks *
+    480]``: 0 and 1 voiced bursts (harmonics 3-6 of a per-stream pitch of
+    180-240 Hz, which the Silero archive calls voice, at two levels), on and
+    off at 2.5-3 Hz; 2 and 3 the noise alone."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_blocks * BLOCK) / FS
+    phase = rng.uniform(0, 2 * np.pi, (n, 1))
+    f0 = rng.uniform(180.0, 240.0, (n, 1))
+    cls = np.arange(n)[:, None] % 4
+    voiced = sum(np.sin(2 * np.pi * f0 * h * t + h * phase) for h in range(3, 7))
+    on = np.sin(2 * np.pi * rng.uniform(2.5, 3.0, (n, 1)) * t + phase) > -0.2
+    x = np.where(cls == 0, 0.15, np.where(cls == 1, 0.06, 0.0)) * voiced * on
+    x = x + 0.02 * rng.standard_normal((n, t.size))
+    return x.astype(np.float32)
+
+
+def vad_path_audio(n: int, n_blocks: int, seed: int) -> np.ndarray:
+    """:func:`voice_and_noise` with class 3 at -50 dBFS, where the Silero
+    archive's posterior stays near 0."""
+    x = voice_and_noise(n, n_blocks, seed)
+    x[3::4] *= 0.15
+    return x
+
+
+def model_kernel_inputs():
+    """Phase [2]'s inputs of the four model kernels at fleet 1024, the shapes
+    the serving step gives them, from two blocks of :func:`voice_and_noise`:
+    ``(vad_front args, vad_lstm_head args, dfn_features args,
+    dfn_spec_synth args)``; the Silero and DeepFilterNet3-LL archives."""
+    from audioforge_tpu_torch.models import dfn3, silero
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(41)
+    x = torch.tensor(voice_and_noise(FLEET, 2, 41), device=dev)
+    x0, x1 = x[:, :BLOCK].contiguous(), x[:, BLOCK:].contiguous()
+    zero = torch.zeros(FLEET, 30, device=dev)
+    hist, window, _ = silero.vad_front_plain(x0, zero, torch.zeros(FLEET, 576, device=dev),
+                                             1.0)
+    front = (x1, hist.contiguous(), window, torch.tensor(1.0, device=dev))
+    sw = {k: v.to(dev) for k, v in silero.default_params().items()}
+    lstm = torch.tensor(rng.normal(0, 0.3, (FLEET, 2, 128)).astype(np.float32), device=dev)
+    gates = silero.vad_gates(sw, silero.vad_front_plain(*front)[2], lstm[:, 0])
+    head = (sw, gates, lstm, torch.tensor(rng.uniform(0, 1, FLEET).astype(np.float32),
+                                          device=dev),
+            torch.tensor(np.arange(FLEET) % 7, dtype=torch.int32, device=dev),
+            torch.tensor(0.5, device=dev))
+    c = dfn3._consts(dev)
+    spec = torch.view_as_real(torch.fft.rfft(torch.cat([x0, x1], 1) * c["window"])).contiguous()
+    st = dfn3.dfn_state_init(n=FLEET, device=dev)
+    features = (spec, st["erb_norm"], st["unit_norm"])
+    f32 = lambda a: torch.tensor(a.astype(np.float32), device=dev)
+    synth = (spec, f32(rng.uniform(0, 1, (FLEET, 32))),
+             f32(rng.normal(0, 0.3, (FLEET, 5, 96, 2))),
+             f32(rng.normal(0, 1, (FLEET, 5, 96, 2))), torch.tensor(30.0, device=dev),
+             torch.tensor(0.0, device=dev))
+    return front, head, features, synth
+
+
+def _tuple_err(a, b) -> float:
+    return max((u.double() - v.double()).abs().max().item() for u, v in zip(a, b))
+
+
+def phase2_models(res: Results) -> None:
+    """The four kernels of the model stages against their plain twins at the
+    serving shapes (fleet 1024): vad_front, vad_lstm_head (and beside it
+    ``torch._VF.lstm_cell``, the one PyTorch call of an LSTM cell, GEMMs
+    included), dfn_features and dfn_spec_synth (also with the post filter
+    on)."""
+    from audioforge_tpu_torch.models import dfn3, silero
+
+    front, head, features, synth = model_kernel_inputs()
+    n = FLEET
+    err = _tuple_err(silero.vad_front(*front), silero.vad_front_plain(*front))
+    # bytes: the block, history and the kept 416 samples of the window read;
+    # history, window and frames written; 160 x 31 multiply-adds and 1,024
+    # pre-gain products per stream
+    res.report("vad_front", err, 1e-5, kernel_times(lambda: silero.vad_front(*front)),
+               cuda_ms(lambda: silero.vad_front_plain(*front), 20),
+               f"[{n}, {BLOCK}] -> frames [{4 * n}, 256]",
+               4 * n * (BLOCK + 30 + 416 + 30 + 576 + 1024),
+               f32_ops=n * (2 * 160 * 31 + 1024))
+
+    out_k, out_p = silero.vad_lstm_head(*head), silero.vad_lstm_head_plain(*head)
+    flags = int((out_k[2] != out_p[2]).sum() + (out_k[4] != out_p[4]).sum())
+    err = _tuple_err([out_k[i] for i in (0, 1, 3)], [out_p[i] for i in (0, 1, 3)])
+    print(f"[2] vad_lstm_head: blocks seen and available differ from the twin on {flags} "
+          f"streams; available on {int(out_k[4].sum())} of {n}", flush=True)
+    check(flags == 0, "vad_lstm_head: counts or flags differ from the plain twin")
+    sw, lstm = head[0], head[2]
+    x_t = torch.relu(head[1][:, :128])  # an input of the encoder's width
+    lib = lambda: torch._VF.lstm_cell(x_t, (lstm[:, 0], lstm[:, 1]), sw["lstm_wi"],
+                                      sw["lstm_wh"], sw["lstm_bi"], sw["lstm_bh"])
+    library_ms, _ = kernel_times(lib)
+    # bytes: gate pre-activations and c0 read, h1 and c1 written, the [N]
+    # rows; per unit 3 sigmoids and 2 tanh (~20 operations each) and ~12
+    # more, the head's multiply-add
+    res.report("vad_lstm_head", err, 1e-5, kernel_times(lambda: silero.vad_lstm_head(*head)),
+               cuda_ms(lambda: silero.vad_lstm_head_plain(*head), 20), f"[{n}, 512]",
+               4 * n * (512 + 128 + 256 + 6), f32_ops=n * 128 * 114,
+               library_ms=library_ms)
+    print(f"[2] vad_lstm_head: library torch._VF.lstm_cell (its two GEMMs included, no "
+          f"head, EMA or calibration) {library_ms:.4f} ms on the card ({res.card})", flush=True)
+
+    err = _tuple_err(dfn3.dfn_features(*features), dfn3.dfn_features_plain(*features))
+    # bytes: the spectrum and both norms read, features and norms written;
+    # per bin the power (3), per band a log10 (~20), per low bin a sqrt and
+    # an rsqrt (~10) and the EMAs
+    res.report("dfn_features", err, 1e-3, kernel_times(lambda: dfn3.dfn_features(*features)),
+               cuda_ms(lambda: dfn3.dfn_features_plain(*features), 20),
+               f"[{n}, 481, 2] -> [{n}, 32] + [{n}, 2, 96]",
+               4 * n * (962 + 32 + 96 + 32 + 192 + 32 + 96),
+               f32_ops=n * (3 * 481 + 32 * 26 + 96 * 16))
+
+    for beta in (0.0, 0.02):
+        args = (*synth[:5], torch.tensor(beta, device=DEVICE))
+        err = _tuple_err([dfn3.dfn_spec_synth(*args)], [dfn3.dfn_spec_synth_plain(*args)])
+        # bytes: the target spectrum, gains, taps and history read, the
+        # spectrum written; per bin ~8 operations, 40 more on a low bin
+        # (the five complex taps), the post filter's sin per band
+        res.report("dfn_spec_synth", err, 1e-4,
+                   kernel_times(lambda: dfn3.dfn_spec_synth(*args)),
+                   cuda_ms(lambda: dfn3.dfn_spec_synth_plain(*args), 20),
+                   f"[{n}, 481, 2], post filter beta {beta:g}",
+                   4 * n * (962 + 32 + 960 + 960 + 962),
+                   f32_ops=n * (8 * 481 + 40 * 96 + 30 * 32))
+
+
 def timed_calls():
     """``(label, call, reps, blocks)`` for every kernel configuration phase
     [2] times, on phase [2]'s inputs: ``call`` runs the wrapper on ``blocks``
@@ -966,13 +1115,24 @@ def timed_calls():
     for name, mode, fade in cleanup_configs():
         args = cleanup_inputs(mode, fade)
         yield f"cleanup_scan {name}", lambda args=args: routing.cleanup_scan(*args), 20, 1
+    try:
+        from audioforge_tpu_torch.models import dfn3, silero
+    except ImportError:  # a checkout from before the model stages
+        return
+    front, head, features, synth = model_kernel_inputs()
+    yield "vad_front", lambda: silero.vad_front(*front), 20, 1
+    yield "vad_lstm_head", lambda: silero.vad_lstm_head(*head), 20, 1
+    yield "dfn_features", lambda: dfn3.dfn_features(*features), 20, 1
+    yield "dfn_spec_synth", lambda: dfn3.dfn_spec_synth(*synth), 20, 1
 
 
-def _engine(capacity: int, device: str, audio: np.ndarray, chain=None):
+def _engine(capacity: int, device: str, audio: np.ndarray, chain=None, **config):
+    """An engine of ``capacity`` streams (``config``: ServingConfig's other
+    fields) with ``audio [capacity, samples]`` queued, one sink list each."""
     from audioforge_tpu_torch.runtime import live_chain as lc
     from audioforge_tpu_torch.runtime.serving import ServingConfig, ServingEngine
 
-    cfg = ServingConfig(capacity=capacity, chain=chain or lc.LiveChainConfig())
+    cfg = ServingConfig(capacity=capacity, chain=chain or lc.LiveChainConfig(), **config)
     eng = ServingEngine(cfg, device=device)
     outs = [[] for _ in range(capacity)]
     for i in range(capacity):
@@ -1035,10 +1195,11 @@ def feed(eng, audio: np.ndarray) -> None:
         eng.push(i, audio[i])
 
 
-def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str) -> None:
-    """Information, on the engine's graph replays: TIMED_CALLS step() calls
+def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str,
+               n_timed: int = TIMED_CALLS) -> None:
+    """Information, on the engine's graph replays: ``n_timed`` step() calls
     (p50, p99 and max from ``latency_histogram``), step_many spans of
-    TIMED_SPAN blocks, TIMED_CALLS step_pipelined() calls, the replay alone
+    TIMED_SPAN blocks, ``n_timed`` step_pipelined() calls, the replay alone
     on the card (CUDA events around back-to-back replays), the state
     copy-back's share of it and the peak device memory since the engine was
     built. ``audio`` (TIMED_SPAN blocks) is queued again every TIMED_SPAN
@@ -1059,10 +1220,10 @@ def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str) -> None:
 
     rate = lambda ms: FLEET * BLOCK / FS / (ms / 1e3)
     for name, call, n_calls, blocks in (
-            ("step()", eng.step, TIMED_CALLS, 1),
+            ("step()", eng.step, n_timed, 1),
             (f"step_many({TIMED_SPAN}) per block", lambda: eng.step_many(TIMED_SPAN),
              4, TIMED_SPAN),
-            ("step_pipelined()", eng.step_pipelined, TIMED_CALLS, 1)):
+            ("step_pipelined()", eng.step_pipelined, n_timed, 1)):
         h = run(call, n_calls, blocks)
         print(f"{tag} {name} x {h['samples']} blocks (info, {card}): p50 {h['p50_ms']:.3f} ms, "
               f"p99 {h['p99_ms']:.3f} ms, max {h['max_ms']:.3f} ms; audio-sec/sec at fleet "
@@ -1070,7 +1231,7 @@ def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str) -> None:
     # where step()'s host time goes: the engine's stages on the host clock
     # over TIMED_CALLS / 5 more calls (no synchronise added; "wait + copy" is the wait
     # for the card's copy of the block and the copy the sinks keep)
-    split, calls = collections.Counter(), max(1, TIMED_CALLS // 5)
+    split, calls = collections.Counter(), max(1, n_timed // 5)
     stages = {"gather": "_gather", "VAD staging": "_stage_vad", "replay launch": "_run",
               "fetch": "_fetch", "wait + copy": "_landed", "sinks": "_deliver"}
 
@@ -1184,6 +1345,100 @@ def phase4_full_chain(card: str) -> dict:
     return counts
 
 
+def vad_chain():
+    """bench.py's VAD cell's chain as the reference really runs it (strong
+    cleanup, ROADMAP F1; the de-esser on, F3) with the VAD-assisted gate."""
+    from audioforge_tpu_torch.ops import gate
+    from audioforge_tpu_torch.runtime import live_chain as lc
+
+    return lc.LiveChainConfig(cleanup_mode="strong", deesser_enabled=True,
+                              gate_mode=gate.VAD_ASSISTED)
+
+
+# per path: (ServingConfig fields, the chain, kernel launches per block)
+_CHAIN_LAUNCHES = {"biquad_cascade": 5, "limiter_gain_scan": 2, "compressor_scan": 1,
+                   "gate_scan": 1}
+MODEL_PATHS = {
+    "VAD-on": (dict(vad_enabled=True), vad_chain,
+               {**_CHAIN_LAUNCHES, "deesser_scan": 1, "cleanup_scan": 1, "vad_front": 1,
+                "vad_lstm_head": 1}),
+    # without RNNoise, its input high-pass is not launched
+    "DFN3-LL": (dict(suppressor_model="deepfilter-ll"), None,
+                {**_CHAIN_LAUNCHES, "biquad_cascade": 4, "dfn_features": 1,
+                 "dfn_spec_synth": 1}),
+    "DFN3 standard": (dict(suppressor_model="deepfilter"), None,
+                      {**_CHAIN_LAUNCHES, "biquad_cascade": 4, "dfn_features": 1,
+                       "dfn_spec_synth": 1}),
+}
+
+
+def phase_model_path(card: str, name: str, tag: str) -> dict:
+    """One model path at fleet 1024 (:data:`MODEL_PATHS`): the first step
+    captures the graph, then MODEL_BLOCKS - 1 step() calls with the launch
+    counts read over them: every kernel of the path launched its count per
+    block, output finite within the ceiling; the VAD path: the probability
+    in [0, 1], available from the 4th block on and never before, and the
+    VAD-assisted gate's fused score at 1 on the voiced streams whose
+    posterior is above 0.5 (the VAD branch open) and below it on the quiet
+    class; a DeepFilterNet3 path: the noise-only class at suppressor
+    strength 1 at least 10 dB below the same class at strength 0. Then
+    MODEL_TIMED_CALLS timed calls as in [3]."""
+    from audioforge_tpu_torch import kernels
+
+    config, chain, per_block = MODEL_PATHS[name]
+    t0 = time.perf_counter()
+    vad = config.get("vad_enabled", False)
+    audio = (vad_path_audio if vad else voice_and_noise)(FLEET, TIMED_SPAN, 50 + len(name))
+    torch.cuda.reset_peak_memory_stats()
+    eng, outs = _engine(FLEET, DEVICE, audio, chain() if chain else None, **config)
+    cls = np.arange(FLEET) % 4
+    if not vad:
+        for slot in np.flatnonzero(cls == 3):
+            eng.set_stream_suppressor(int(slot), strength=0.0)
+    metrics = [eng.step()]  # captures the step's graph
+    print_capture(eng, card, tag)
+    kernels.reset_launch_counts()
+    for _ in range(MODEL_BLOCKS - 1):
+        metrics.append(eng.step())
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)
+    print(f"{tag} {name} path at fleet {FLEET}, launches over {MODEL_BLOCKS - 1} blocks after "
+          f"the capture: {counts}", flush=True)
+    _check_per_block(counts, per_block, MODEL_BLOCKS - 1, f"{name} path")
+    peak = _check_output(outs, MODEL_BLOCKS, FLEET)
+    if vad:
+        for b, m in enumerate(metrics):
+            prob, avail = m["vad_probability"].cpu().numpy(), m["vad_available"].cpu().numpy()
+            check(bool(np.isfinite(prob).all() and prob.min() >= 0.0 and prob.max() <= 1.0),
+                  f"VAD probability outside [0, 1] at block {b}")
+            check(bool(avail.all()) if b >= 3 else not avail.any(),
+                  f"VAD available {int(avail.sum())} of {FLEET} at block {b}")
+        m = metrics[-1]
+        prob, fused = m["vad_probability"].cpu().numpy(), m["gate_fused_score"].cpu().numpy()
+        voiced = (cls <= 1) & (prob > 0.5)
+        print(f"{tag} VAD probability on the last block: mean {prob[cls == 0].mean():.3f} / "
+              f"{prob[cls == 1].mean():.3f} / {prob[cls == 2].mean():.3f} / "
+              f"{prob[cls == 3].mean():.3f} by class; the gate's fused score on the "
+              f"{int(voiced.sum())} voiced streams above 0.5 min {fused[voiced].min():.3f}, "
+              f"on the quiet class max {fused[cls == 3].max():.3f}", flush=True)
+        check(voiced.sum() >= FLEET // 8 and fused[voiced].min() >= 0.99,
+              "the VAD-assisted gate did not open on the voiced streams")
+        check(prob[cls == 3].max() < 0.5 and fused[cls == 3].max() < 0.99,
+              "the VAD opened the gate on the quiet class")
+    else:
+        y = np.stack([np.concatenate(o) for o in outs])[:, -8 * BLOCK:]
+        rms = np.sqrt(np.mean(y.astype(np.float64) ** 2, axis=1))
+        atten = 20.0 * np.log10(rms[cls == 3].mean() / rms[cls == 2].mean())
+        print(f"{tag} the noise-only class at strength 1 is {atten:.2f} dB below the same "
+              f"class at strength 0 over the last 8 blocks (output RMS "
+              f"{rms[cls == 2].mean():.5f} against {rms[cls == 3].mean():.5f})", flush=True)
+        check(atten >= 10.0, f"{name}: the suppressor does not attenuate noise")
+    print(f"{tag} output finite, peak {peak:.4f} within the ceiling; {MODEL_BLOCKS} blocks in "
+          f"{time.perf_counter() - t0:.1f} s with the engine's set-up", flush=True)
+    time_paths(eng, outs, audio, card, tag, MODEL_TIMED_CALLS)
+    return counts
+
+
 def layer_split(eng, card: str, tag: str) -> None:
     """Seconds of one step by layer, with a device synchronise around each
     timed stage (information only). A graph replay does not see Python
@@ -1290,33 +1545,58 @@ def card_split(eng, card: str, tag: str) -> None:
 
 
 def phase5_card_vs_cpu() -> None:
+    """The same 4-stream engines on the card and on the CPU: output RMS
+    difference 1e-3; RNNoise's pitch periods, the hum line and the rumble
+    flags equal; on the VAD path the last block's probability within 1e-3 and
+    ``available`` equal; on the DeepFilterNet3 paths the ERB norms within
+    1e-3."""
     from audioforge_tpu_torch.runtime import live_chain as lc
 
     n = 4
-    for name, chain, n_blocks, audio in (
-            ("default path", None, 10, speech_like(n, 10, 12)),
+    for name, chain, n_blocks, audio, config in (
+            ("default path", None, 10, speech_like(n, 10, 12), {}),
             ("adaptive release", lc.LiveChainConfig(adaptive_release=True), 10,
-             speech_like(n, 10, 13)),
-            ("full chain", full_chain(), 27, mic_capture(n, 27, 17))):
-        ys, periods, hum = {}, {}, {}
+             speech_like(n, 10, 13), {}),
+            ("full chain", full_chain(), 27, mic_capture(n, 27, 17), {}),
+            ("VAD-on", vad_chain(), 10, vad_path_audio(n, 10, 18),
+             MODEL_PATHS["VAD-on"][0]),
+            ("DFN3-LL", None, 10, voice_and_noise(n, 10, 19), MODEL_PATHS["DFN3-LL"][0]),
+            ("DFN3 standard", None, 10, voice_and_noise(n, 10, 20),
+             MODEL_PATHS["DFN3 standard"][0])):
+        ys, periods, hum, vad, norms = {}, {}, {}, {}, {}
+        t0 = time.perf_counter()
         for device in (DEVICE, "cpu"):
-            eng, outs = _engine(n, device, audio, chain)
+            eng, outs = _engine(n, device, audio, chain, **config)
             m = eng.step_many(n_blocks)
+            vad[device] = (m["vad_probability"].cpu().numpy(),
+                           m["vad_available"].cpu().numpy())
             ys[device] = np.stack([np.concatenate(o) for o in outs])
-            periods[device] = eng._state["supp"]["model"]["last_period"].cpu().numpy()
+            model = eng._state["supp"]["model"]
+            periods[device] = (model["last_period"].cpu().numpy() if "last_period" in model
+                               else np.zeros(0))
+            norms[device] = (model["erb_norm"].cpu().numpy() if "erb_norm" in model
+                             else np.zeros(0))
             hum[device] = (m["routing_hum_line_hz"].cpu().numpy(),
                            m["routing_rumble_detected"].cpu().numpy())
         diff = ys[DEVICE].astype(np.float64) - ys["cpu"]
         rms = float(np.sqrt(np.mean(diff ** 2)))
+        vad_err = float(np.abs(vad[DEVICE][0] - vad["cpu"][0]).max())
+        vad_same = bool((vad[DEVICE][1] == vad["cpu"][1]).all())
+        norm_err = float(np.abs(norms[DEVICE] - norms["cpu"]).max(initial=0.0))
         print(f"[5] card vs CPU, {name}, {n_blocks} blocks x {n} streams: RMS diff "
               f"{rms:.3e} (tol 1e-3), max {np.abs(diff).max():.3e}; last_period card "
               f"{periods[DEVICE].tolist()} cpu {periods['cpu'].tolist()}; hum line card "
-              f"{hum[DEVICE][0].tolist()} cpu {hum['cpu'][0].tolist()}", flush=True)
+              f"{hum[DEVICE][0].tolist()} cpu {hum['cpu'][0].tolist()}; VAD probability "
+              f"max diff {vad_err:.3e} (tol 1e-3), available equal {vad_same}; ERB norm "
+              f"max diff {norm_err:.3e} (tol 1e-3); {time.perf_counter() - t0:.1f} s",
+              flush=True)
         check(rms <= 1e-3, f"card and CPU outputs differ ({name})")
         check(bool((periods[DEVICE] == periods["cpu"]).all()), "pitch periods differ")
         check(bool(np.allclose(hum[DEVICE][0], hum["cpu"][0], atol=1e-3)
                    and (hum[DEVICE][1] == hum["cpu"][1]).all()),
               f"hum line or rumble flags differ ({name})")
+        check(vad_err <= 1e-3 and vad_same, f"VAD outputs differ ({name})")
+        check(norm_err <= 1e-3, f"DeepFilterNet3 norms differ ({name})")
 
 
 SOURCES = {
@@ -1336,19 +1616,32 @@ SOURCES = {
                      "audioforge_tpu/ops/deesser.py:199"),
     "cleanup_scan": ("audioforge_tpu_torch/csrc/cleanup_scan.cu",
                      "audioforge_tpu/ops/routing.py:476"),
+    "vad_front": ("audioforge_tpu_torch/csrc/vad_front.cu",
+                  "audioforge_tpu/ops/resample.py:315"),
+    "vad_lstm_head": ("audioforge_tpu_torch/csrc/silero_lstm.cu",
+                      "audioforge_tpu/models/silero.py:265"),
+    "dfn_features": ("audioforge_tpu_torch/csrc/dfn_features.cu",
+                     "audioforge_tpu/models/dfn3.py:621"),
+    "dfn_spec_synth": ("audioforge_tpu_torch/csrc/dfn_synth.cu",
+                       "audioforge_tpu/models/dfn3.py:770"),
 }
 
 def phase6_profile(card: str) -> None:
     """CUDA kernels per ``step()`` (one graph replay each) and the card's busy
-    share over 3 steps at fleet 1024, default path and full chain, from a
-    ``torch.profiler`` trace (device rows only); beside it the replay alone
-    on the card from CUDA events."""
+    share over 3 steps at fleet 1024, default path, full chain and the three
+    model paths, from a ``torch.profiler`` trace (device rows only); beside
+    it the replay alone on the card from CUDA events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name, chain, audio in (("default path", None, speech_like(FLEET, 6, 21)),
-                               ("full chain", full_chain(), mic_capture(FLEET, 6, 22))):
-        eng, _ = _engine(FLEET, DEVICE, audio, chain)
+    models = [(name, chain() if chain else None, config,
+               (vad_path_audio if config.get("vad_enabled") else voice_and_noise)(
+                   FLEET, 6, 23 + i))
+              for i, (name, (config, chain, _)) in enumerate(MODEL_PATHS.items())]
+    for name, chain, config, audio in (
+            ("default path", None, {}, speech_like(FLEET, 6, 21)),
+            ("full chain", full_chain(), {}, mic_capture(FLEET, 6, 22)), *models):
+        eng, _ = _engine(FLEET, DEVICE, audio, chain, **config)
         for _ in range(3):
             eng.step()
         torch.cuda.synchronize()
@@ -1488,20 +1781,85 @@ def phase7_graph_vs_eager(card: str) -> None:
     check(same and not state_apart, "step_pipelined delivers other blocks than step()")
 
 
+DFN_EAGER_BLOCKS = 20
+
+
+def phase7_dfn_graph_vs_eager(card: str) -> None:
+    """The DeepFilterNet3-LL path at fleet 1024 over DFN_EAGER_BLOCKS blocks,
+    a stream detached and attached again (a slot reset) before block 8: the
+    engine's graph replays against ``_serving_step`` called eagerly on the
+    card on the same inputs, every block's output and the final state
+    ``torch.equal``. Where they are not equal, the blocks and state leaves
+    that differ are named and held to 1e-5 (the graph and the eager step call
+    the same kernels and library products on the same shapes; only a library
+    call that picked another algorithm under capture could make them
+    differ)."""
+    from audioforge_tpu_torch.runtime import serving as sv
+
+    t0 = time.perf_counter()
+    audio = voice_and_noise(FLEET, DFN_EAGER_BLOCKS, 34)
+    eng, outs = _engine(FLEET, DEVICE, audio, **MODEL_PATHS["DFN3-LL"][0])
+    ref = sv._clone_tree(eng._state)
+    apart, worst = [], 0.0
+    for b in range(DFN_EAGER_BLOCKS):
+        if b == 8:
+            eng.detach(5)
+            check(eng.attach(sink=outs[5].append) == 5, "slot 5 was not reused")
+            eng.push(5, audio[5, b * BLOCK:])
+        reset = eng._reset_pending.copy()
+        eng.step()
+        mask = torch.from_numpy(reset).to(DEVICE) if reset.any() else None
+        ref, y_ref, _ = sv._serving_step(eng.config, eng._params_dev, ref, eng._fresh, eng._x,
+                                         eng._active, mask, eng._vad_prob, eng._vad_avail)
+        y = eng._graph_out[0]
+        if not torch.equal(y, y_ref):
+            apart.append(b)
+            worst = max(worst, (y - y_ref).abs().max().item())
+    torch.cuda.synchronize()
+    leaves = _tree_diff(ref, eng._state)
+    flat = lambda t, path: t if not path else flat(t[path[0]], path[1:])
+    for leaf in leaves:
+        path = leaf.strip(".").split(".")
+        a, b = flat(ref, path), flat(eng._state, path)
+        worst = max(worst, (a.double() - b.double()).abs().max().item())
+    print(f"[7] graph against eager, DFN3-LL at fleet {FLEET}, {DFN_EAGER_BLOCKS} blocks with a "
+          f"slot reset ({time.perf_counter() - t0:.1f} s, {card}): blocks whose y differs "
+          f"{apart}; state leaves that differ {leaves}; max difference {worst:.3e}",
+          flush=True)
+    check(worst <= 1e-5, "the DFN3 graph replay and the eager step differ beyond 1e-5")
+
+
+def timed_phase(label: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"{label}: {time.perf_counter() - t0:.1f} s wall-clock", flush=True)
+    return out
+
+
 def main() -> int:
+    t0 = time.perf_counter()
     card = phase0_device()
-    phase1_build()
+    timed_phase("[1] build", phase1_build)
     res = Results(card)
-    phase2_pr1_kernels(res)
-    phase2_gate(res)
-    phase2_deesser(res)
-    phase2_cleanup(res)
-    phase2_torch_stages(card)
-    phase3_default(card)
-    counts = phase4_full_chain(card)
-    phase5_card_vs_cpu()
-    phase6_profile(card)
-    phase7_graph_vs_eager(card)
+    timed_phase("[2] kernels", lambda: (phase2_pr1_kernels(res), phase2_gate(res),
+                                        phase2_deesser(res), phase2_cleanup(res),
+                                        phase2_models(res), phase2_torch_stages(card)))
+    timed_phase("[3] default path", phase3_default, card)
+    counts = timed_phase("[4] full chain", phase4_full_chain, card)
+    # a model stage's kernels: their launches on their own path's run
+    vad = timed_phase("[8] VAD-on path", phase_model_path, card, "VAD-on", "[8]")
+    dfn_ll = timed_phase("[9] DFN3-LL path", phase_model_path, card, "DFN3-LL", "[9]")
+    dfn = timed_phase("[10] DFN3 standard path", phase_model_path, card, "DFN3 standard",
+                      "[10]")
+    for name in ("vad_front", "vad_lstm_head"):
+        counts[name] = vad[name]
+    for name in ("dfn_features", "dfn_spec_synth"):
+        counts[name] = dfn_ll[name] + dfn[name]
+    timed_phase("[5] card against CPU", phase5_card_vs_cpu)
+    timed_phase("[6] profile", phase6_profile, card)
+    timed_phase("[7] graph against eager", lambda: (phase7_graph_vs_eager(card),
+                                                    phase7_dfn_graph_vs_eager(card)))
+    print(f"all phases: {time.perf_counter() - t0:.1f} s wall-clock", flush=True)
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
               "launches": counts[name], **res.rows[name]}
              for name, (src, rep) in SOURCES.items()]

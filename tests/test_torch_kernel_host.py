@@ -58,9 +58,12 @@ import numpy as np
 import pytest
 import torch
 
+from audioforge_tpu_torch.models import dfn3 as tdfn
+from audioforge_tpu_torch.models import silero as tsil
 from audioforge_tpu_torch.ops import biquad as tbq
 from audioforge_tpu_torch.ops import compressor as tcomp
 from audioforge_tpu_torch.ops import deesser as tdes
+from audioforge_tpu_torch.ops import resample as tres
 from audioforge_tpu_torch.ops import gate as tgate
 from audioforge_tpu_torch.ops import routing as troute
 from audioforge_tpu_torch.ops import scan as tscan
@@ -78,6 +81,115 @@ RUNNER = r"""
 #include "deesser_scan.cu"
 #include "gate_scan.cu"
 #include "max_affine_scan.cu"
+#include "vad_front.cu"
+#include "silero_lstm.cu"
+#include "dfn_features.cu"
+#include "dfn_synth.cu"
+
+// vad_front per stream: the ext row and the window as the kernel stages
+// them, the decimated samples into the window, then the writes.
+extern "C" int host_vad_front(const float* x, const float* hist, const float* window,
+                              float gain, float* hist_out, float* window_out,
+                              float* frames, int N) {
+    for (int n = 0; n < N; ++n) {
+        float ext[VF_HIST + VF_BLOCK], win[VF_WIN];
+        std::copy(hist + n * VF_HIST, hist + (n + 1) * VF_HIST, ext);
+        std::copy(x + n * VF_BLOCK, x + (n + 1) * VF_BLOCK, ext + VF_HIST);
+        std::copy(window + n * VF_WIN + VF_OUT, window + (n + 1) * VF_WIN, win);
+        for (int o = 0; o < VF_OUT; ++o) win[VF_KEEP + o] = vf_decimate(ext, o);
+        std::copy(ext + VF_BLOCK, ext + VF_BLOCK + VF_HIST, hist_out + n * VF_HIST);
+        std::copy(win, win + VF_WIN, window_out + n * VF_WIN);
+        for (int f = 0; f < VF_FRAMES; ++f)
+            for (int j = 0; j < VF_FRAME; ++j)
+                frames[(n * VF_FRAMES + f) * VF_FRAME + j] = vf_frame_value(win, f, j, gain);
+    }
+    return 0;
+}
+
+// vad_lstm_head per stream: each lane's four units in the kernel's order,
+// the head's dot as the warp's xor butterfly (lane 0's sum), lane 0's tail.
+extern "C" int host_vad_lstm_head(const float* gates, const float* lstm, const float* bi,
+                                  const float* bh, const float* head_w, float head_b,
+                                  const float* smoothed, const int* seen, float smoothing,
+                                  float* lstm_out, float* smoothed_out, int* seen_out,
+                                  float* prob, bool* avail, int N, int warmup_blocks) {
+    const int H = VL_HIDDEN;
+    for (int n = 0; n < N; ++n) {
+        const float* g = gates + n * 4 * H;
+        float part[32];
+        for (int lane = 0; lane < 32; ++lane) {
+            part[lane] = 0.0f;
+            for (int j = 0; j < VL_UNITS; ++j) {
+                const int u = VL_UNITS * lane + j;
+                const float v = vl_unit(g[u], g[H + u], g[2 * H + u], g[3 * H + u], bi[u],
+                                        bi[H + u], bi[2 * H + u], bi[3 * H + u], bh[u],
+                                        bh[H + u], bh[2 * H + u], bh[3 * H + u],
+                                        lstm[n * 2 * H + H + u], head_w[u],
+                                        lstm_out + n * 2 * H + u,
+                                        lstm_out + n * 2 * H + H + u);
+                part[lane] = j == 0 ? v : part[lane] + v;
+            }
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+            float next[32];
+            for (int lane = 0; lane < 32; ++lane) next[lane] = part[lane] + part[lane ^ o];
+            std::copy(next, next + 32, part);
+        }
+        vl_finish(part[0], head_b, smoothing, smoothed[n], seen[n], warmup_blocks,
+                  smoothed_out + n, seen_out + n, prob + n, avail + n);
+    }
+    return 0;
+}
+
+// dfn_features per stream: the power row and the low bins in bin order,
+// then band b as lane b sums it.
+extern "C" int host_dfn_features(const float* spec, const float* erb_norm,
+                                 const float* unit_norm, const int* offsets,
+                                 float* feat_erb, float* feat_spec, float* erb_norm_out,
+                                 float* unit_norm_out, int N, float alpha, float one_minus) {
+    for (int n = 0; n < N; ++n) {
+        float power[DFF_FREQ];
+        for (int k = 0; k < DFF_FREQ; ++k) {
+            const float re = spec[(n * DFF_FREQ + k) * 2], im = spec[(n * DFF_FREQ + k) * 2 + 1];
+            power[k] = dff_power(re, im);
+            if (k < DFF_DF)
+                dff_low_bin(re, im, unit_norm[n * DFF_DF + k], alpha, one_minus,
+                            unit_norm_out + n * DFF_DF + k, feat_spec + n * 2 * DFF_DF + k,
+                            feat_spec + n * 2 * DFF_DF + DFF_DF + k);
+        }
+        for (int b = 0; b < DFF_ERB; ++b)
+            dff_band(power, offsets[b], offsets[b + 1], erb_norm[n * DFF_ERB + b], alpha,
+                     one_minus, erb_norm_out + n * DFF_ERB + b, feat_erb + n * DFF_ERB + b);
+    }
+    return 0;
+}
+
+// dfn_spec_synth per stream: the gains as threads 0-31 stage them, then
+// every bin.
+extern "C" int host_dfn_spec_synth(const float* x_tgt, const float* erb_gains,
+                                   const float* coefs, const float* hist,
+                                   const int* bin_band, float atten_lim_db, float beta,
+                                   float* y, int N) {
+    for (int n = 0; n < N; ++n) {
+        float gains[DFS_ERB];
+        for (int b = 0; b < DFS_ERB; ++b) {
+            const float g = erb_gains[n * DFS_ERB + b];
+            gains[b] = beta > 0.0f ? dfs_post_filter(g, beta) : g;
+        }
+        const float floor_gain = dfs_floor_gain(atten_lim_db);
+        const int tap0 = n * DFS_ORDER * DFS_DF * 2;
+        for (int k = 0; k < DFS_FREQ; ++k) {
+            const float* X = x_tgt + (n * DFS_FREQ + k) * 2;
+            const bool low = k < DFS_DF;
+            const DfsComplex fir = low ? dfs_fir(coefs + tap0, hist + tap0, k) : DfsComplex{};
+            const DfsComplex out = dfs_bin({X[0], X[1]}, gains[bin_band[k]], low, fir,
+                                           floor_gain);
+            y[(n * DFS_FREQ + k) * 2] = out.re;
+            y[(n * DFS_FREQ + k) * 2 + 1] = out.im;
+        }
+    }
+    return 0;
+}
 
 extern "C" int host_biquad_cascade(const float* x, const float* coeffs,
                                    const double* z_in, const int* fade_total,
@@ -565,6 +677,17 @@ def host_lib(tmp_path_factory):
     lib.host_limiter_gain_scan.argtypes = (
         (_P, _I, _P, _I, _P, _P, _P, ctypes.c_float) + (_P,) * 4 + (_I, _I, _I))
     lib.host_limiter_gain_scan.restype = _I
+    lib.host_vad_front.argtypes = (_P, _P, _P, ctypes.c_float, _P, _P, _P, _I)
+    lib.host_vad_front.restype = _I
+    lib.afk_vad_front_tap.argtypes = (_I,)
+    lib.afk_vad_front_tap.restype = ctypes.c_float
+    lib.host_vad_lstm_head.argtypes = ((_P,) * 5 + (ctypes.c_float, _P, _P, ctypes.c_float)
+                                       + (_P,) * 5 + (_I, _I))
+    lib.host_vad_lstm_head.restype = _I
+    lib.host_dfn_features.argtypes = (_P,) * 8 + (_I, ctypes.c_float, ctypes.c_float)
+    lib.host_dfn_features.restype = _I
+    lib.host_dfn_spec_synth.argtypes = (_P,) * 5 + (ctypes.c_float, ctypes.c_float, _P, _I)
+    lib.host_dfn_spec_synth.restype = _I
     lib.host_quotient_mismatches.argtypes = (_I, _I)
     lib.host_quotient_mismatches.restype = ctypes.c_longlong
     return lib
@@ -1040,3 +1163,119 @@ def test_limiter_gain_scan_host_build_matches_plain(host_lib, kind, shape):
     np.testing.assert_array_equal(events, eventsp.numpy())
     assert eventsp.numpy().sum() >= NS - 2 and minp.min() < 0.5  # limiting engaged
     assert np.abs(yp.numpy()).max(axis=1).max() <= ceiling.max()
+
+
+# ---------------------------------------------------------------------------
+# The model kernels of the serving step: vad_front, vad_lstm_head (Silero),
+# dfn_features, dfn_spec_synth (DeepFilterNet3)
+# ---------------------------------------------------------------------------
+
+NM = 11  # streams: one block of the kernels' eight and a ragged second
+
+
+def test_vad_front_taps_equal_the_design(host_lib):
+    taps = np.array([host_lib.afk_vad_front_tap(t) for t in range(tres.VAD_DECIMATE_TAPS)],
+                    np.float32)
+    np.testing.assert_array_equal(taps, tres.decimate3_taps())
+
+
+@pytest.mark.parametrize("gain", [1.0, 2.5])
+def test_vad_front_host_build_matches_plain(host_lib, gain):
+    """Two consecutive blocks, the second from the first's history and
+    window. Decimated samples 1e-6 (a 31-tap f32 sum in another order), the
+    rest exact."""
+    rng = np.random.default_rng(90)
+    hist = np.zeros((NM, 30), np.float32)
+    window = (0.2 * rng.standard_normal((NM, 576))).astype(np.float32)
+    for b in range(2):
+        x = (0.3 * rng.standard_normal((NM, 480))).astype(np.float32)
+        h_out, w_out = np.empty_like(hist), np.empty_like(window)
+        frames = np.empty((NM * 4, 256), np.float32)
+        assert host_lib.host_vad_front(_ptr(x), _ptr(hist), _ptr(window), gain, _ptr(h_out),
+                                       _ptr(w_out), _ptr(frames), NM) == 0
+        hp, wp, fp = tsil.vad_front_plain(torch.as_tensor(x), torch.as_tensor(hist),
+                                          torch.as_tensor(window), gain)
+        np.testing.assert_array_equal(h_out, hp.numpy())
+        np.testing.assert_allclose(w_out, wp.numpy(), atol=1e-6)
+        np.testing.assert_array_equal(w_out[:, :416], window[:, 160:])
+        np.testing.assert_allclose(frames, fp.numpy(), atol=1e-6 * gain)
+        hist, window = h_out, w_out
+
+
+@pytest.mark.parametrize("smoothing", [0.5, 0.2])
+def test_vad_lstm_head_host_build_matches_plain(host_lib, smoothing):
+    """Streams before, at and after the warm-up (blocks seen 0-6), a NaN
+    smoothed value on one warm stream. The state 1e-6, the probability and
+    the EMA 1e-5 (the head's dot in the warp's order), counts and flags
+    exact."""
+    rng = np.random.default_rng(91)
+    p = {k: torch.as_tensor(v) for k, v in tsil.init_params().items()}
+    p["lstm_bi"] = torch.as_tensor(rng.normal(0, 0.3, 512).astype(np.float32))
+    p["lstm_bh"] = torch.as_tensor(rng.normal(0, 0.3, 512).astype(np.float32))
+    p["head_b"] = torch.tensor([0.4])
+    gates = (1.5 * rng.standard_normal((NM, 512))).astype(np.float32)
+    lstm = rng.normal(0, 0.5, (NM, 2, 128)).astype(np.float32)
+    smoothed = rng.uniform(0, 1, NM).astype(np.float32)
+    smoothed[5] = np.nan  # warm and past the first warm block: the EMA reads it
+    seen = (np.arange(NM) % 7).astype(np.int32)
+    out = dict(lstm=np.empty_like(lstm), smoothed=np.empty_like(smoothed),
+               seen=np.empty_like(seen), prob=np.empty_like(smoothed),
+               avail=np.empty(NM, bool))
+    assert host_lib.host_vad_lstm_head(
+        _ptr(gates), _ptr(lstm), _ptr(p["lstm_bi"].numpy()), _ptr(p["lstm_bh"].numpy()),
+        _ptr(p["head_w"].numpy()), 0.4, _ptr(smoothed), _ptr(seen), smoothing,
+        _ptr(out["lstm"]), _ptr(out["smoothed"]), _ptr(out["seen"]), _ptr(out["prob"]),
+        _ptr(out["avail"]), NM, tsil.VAD_WARMUP_BLOCKS) == 0
+    lp, sp, seen_p, pp, ap = tsil.vad_lstm_head_plain(
+        p, torch.as_tensor(gates), torch.as_tensor(lstm), torch.as_tensor(smoothed),
+        torch.as_tensor(seen), smoothing)
+    np.testing.assert_allclose(out["lstm"], lp.numpy(), atol=1e-6)
+    np.testing.assert_allclose(out["smoothed"], sp.numpy(), atol=1e-5)
+    np.testing.assert_allclose(out["prob"], pp.numpy(), atol=1e-5)
+    np.testing.assert_array_equal(out["seen"], seen_p.numpy())
+    np.testing.assert_array_equal(out["avail"], ap.numpy())
+    assert out["avail"].sum() == (seen >= 3).sum() and out["prob"][5] == 0.0
+
+
+@pytest.mark.parametrize("level", [1e-3, 1.0, 30.0])
+def test_dfn_features_host_build_matches_plain(host_lib, level):
+    """Spectra at three levels, an empty band on one stream. Norms 1e-6
+    relative, features 1e-4 (dB of a band sum in another order, over 40)."""
+    rng = np.random.default_rng(92)
+    spec = (level * rng.standard_normal((NM, 481, 2))).astype(np.float32)
+    spec[4, :40] = 0.0
+    erb_norm = rng.uniform(-90, -20, (NM, 32)).astype(np.float32)
+    unit_norm = rng.uniform(1e-4, 1.0, (NM, 96)).astype(np.float32)
+    offsets = tdfn._consts(torch.device("cpu"))["erb_offsets"].numpy()
+    got = dict(feat_erb=np.empty_like(erb_norm), feat_spec=np.empty((NM, 2, 96), np.float32),
+               erb=np.empty_like(erb_norm), unit=np.empty_like(unit_norm))
+    assert host_lib.host_dfn_features(
+        _ptr(spec), _ptr(erb_norm), _ptr(unit_norm), _ptr(offsets), _ptr(got["feat_erb"]),
+        _ptr(got["feat_spec"]), _ptr(got["erb"]), _ptr(got["unit"]), NM, tdfn._NORM_ALPHA,
+        1.0 - tdfn._NORM_ALPHA) == 0
+    fe, fs, en, un = tdfn.dfn_features_plain(torch.as_tensor(spec), torch.as_tensor(erb_norm),
+                                             torch.as_tensor(unit_norm))
+    np.testing.assert_allclose(got["feat_erb"], fe.numpy(), atol=1e-4)
+    np.testing.assert_allclose(got["erb"], en.numpy(), rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(got["unit"], un.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(got["feat_spec"], fs.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("atten,beta", [(30.0, 0.0), (6.0, 0.03), (100.0, 0.05)])
+def test_dfn_spec_synth_host_build_matches_plain(host_lib, atten, beta):
+    """Gains over [0, 1] (and 0 and 1 exactly), random taps and history:
+    the spectrum 1e-6 relative to its scale (a five-tap complex sum)."""
+    rng = np.random.default_rng(93)
+    x = rng.standard_normal((NM, 481, 2)).astype(np.float32)
+    gains = rng.uniform(0, 1, (NM, 32)).astype(np.float32)
+    gains[0, :2] = (0.0, 1.0)
+    coefs = rng.normal(0, 0.5, (NM, 5, 96, 2)).astype(np.float32)
+    hist = rng.standard_normal((NM, 5, 96, 2)).astype(np.float32)
+    band = tdfn._consts(torch.device("cpu"))["bin_band"].numpy()
+    y = np.empty_like(x)
+    assert host_lib.host_dfn_spec_synth(_ptr(x), _ptr(gains), _ptr(coefs), _ptr(hist),
+                                        _ptr(band), atten, beta, _ptr(y), NM) == 0
+    yp = tdfn.dfn_spec_synth_plain(torch.as_tensor(x), torch.as_tensor(gains),
+                                   torch.as_tensor(coefs), torch.as_tensor(hist), atten,
+                                   beta).numpy()
+    np.testing.assert_allclose(y, yp, atol=1e-6 * np.abs(yp).max())

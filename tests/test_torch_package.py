@@ -13,6 +13,7 @@ import torch
 
 from audioforge_tpu_torch import kernels
 from audioforge_tpu_torch.__main__ import main as cli_main
+from audioforge_tpu_torch.models import dfn3, silero
 from audioforge_tpu_torch.ops import biquad, compressor, deesser, envelope, gate
 from audioforge_tpu_torch.ops import routing, scan
 
@@ -21,7 +22,9 @@ REPO = Path(__file__).resolve().parents[1]
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, audioforge_tpu_torch, audioforge_tpu_torch.convert, "
-            "audioforge_tpu_torch.runtime.serving; "
+            "audioforge_tpu_torch.runtime.serving, audioforge_tpu_torch.models.silero, "
+            "audioforge_tpu_torch.models.dfn3, audioforge_tpu_torch.ops.resample, "
+            "audioforge_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('audioforge_tpu.') or m == 'audioforge_tpu']; "
             "assert not bad, bad")
@@ -128,4 +131,71 @@ def test_serve_cli_processes_a_wav_on_cpu(tmp_path, capsys):
         assert handle.getnframes() == n
         y = np.frombuffer(handle.readframes(n), "<i2")
     assert np.abs(y).max() > 0
+    assert "1 streams" in capsys.readouterr().out
+
+
+
+def _model_kernel_calls(n, launch):
+    """One call of each model kernel's wrapper for ``n`` CPU streams, taking
+    its first tensor argument; ``launch`` calls the launch path itself (its
+    layout checks, then the kernel library)."""
+    f = lambda *shape: torch.zeros(shape)
+    p = {k: torch.as_tensor(v) for k, v in silero.init_params().items()}
+    seen = torch.zeros(n, dtype=torch.int32)
+    pick = lambda wrapper, launcher: launcher if launch else wrapper
+    return {
+        "vad_front": lambda x: pick(silero.vad_front, silero._vad_front_launch)(
+            x, f(n, 30), f(n, 576), f()),
+        "vad_lstm_head": lambda g: pick(silero.vad_lstm_head, silero._vad_lstm_head_launch)(
+            p, g, f(n, 2, 128), f(n), seen, f(), silero.VAD_WARMUP_BLOCKS),
+        "dfn_features": lambda s: pick(dfn3.dfn_features, dfn3._dfn_features_launch)(
+            s, f(n, 32), f(n, 96)),
+        "dfn_spec_synth": lambda s: pick(dfn3.dfn_spec_synth, dfn3._dfn_spec_synth_launch)(
+            s, f(n, 32), f(n, 5, 96, 2), f(n, 5, 96, 2), f(), f()),
+    }
+
+
+_MODEL_FIRST_SHAPES = {"vad_front": (480,), "vad_lstm_head": (512,),
+                       "dfn_features": (481, 2), "dfn_spec_synth": (481, 2)}
+
+
+@pytest.mark.parametrize("kernel", list(_MODEL_FIRST_SHAPES))
+def test_model_kernels_refuse_devices_they_cannot_launch_on(kernel):
+    call = _model_kernel_calls(2, launch=False)[kernel]
+    with pytest.raises(ValueError, match="unsupported device"):
+        call(torch.empty((2,) + _MODEL_FIRST_SHAPES[kernel], device="meta"))
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity"])
+@pytest.mark.parametrize("kernel", list(_MODEL_FIRST_SHAPES))
+def test_model_kernels_reject_layouts_they_do_not_take(kernel, fault):
+    n, shape = 3, _MODEL_FIRST_SHAPES[kernel]
+    if fault == "dtype":
+        x = torch.zeros((n,) + shape, dtype=torch.float64)
+    elif fault == "shape":
+        x = torch.zeros((n,) + shape[:-1] + (shape[-1] + 1,))
+    else:
+        x = torch.zeros(shape[::-1] + (n,)).permute(*range(len(shape), -1, -1))
+    with pytest.raises(ValueError, match={"dtype": "dtype", "shape": "shape",
+                                          "contiguity": "contiguous"}[fault]):
+        _model_kernel_calls(n, launch=True)[kernel](x)
+
+
+@pytest.mark.parametrize("flags", [["--vad"], ["--suppressor", "deepfilter-ll"],
+                                   ["--suppressor", "deepfilter", "--vad"]])
+def test_serve_cli_runs_the_model_stages_on_cpu(tmp_path, capsys, flags):
+    n = 2400  # 50 ms
+    rng = np.random.default_rng(5)
+    pcm = (0.1 * rng.standard_normal(n) * 32767).astype("<i2")
+    src = tmp_path / "mic.wav"
+    with wave.open(str(src), "wb") as handle:
+        handle.setnchannels(1)
+        handle.setsampwidth(2)
+        handle.setframerate(48000)
+        handle.writeframes(pcm.tobytes())
+    out_dir = tmp_path / "out"
+    assert cli_main(["serve", str(src), "--output-dir", str(out_dir), "--device", "cpu",
+                     *flags]) == 0
+    with wave.open(str(out_dir / "mic.processed.wav"), "rb") as handle:
+        assert handle.getnframes() == n
     assert "1 streams" in capsys.readouterr().out

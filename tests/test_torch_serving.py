@@ -198,10 +198,11 @@ def test_stream_params_change_only_their_stream():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tsv.ServingConfig(vad_enabled=True)
-    with pytest.raises(NotImplementedError):
-        tsv.ServingConfig(suppressor_model="deepfilter")
+    # the VAD and both DeepFilterNet3 models are ported; sharding is not
+    for model in ("rnnoise", "deepfilter-ll", "deepfilter", None):
+        tsv.ServingConfig(suppressor_model=model, vad_enabled=True)
+    with pytest.raises(ValueError):
+        tsv.ServingConfig(suppressor_model="speex")
     with pytest.raises(NotImplementedError):
         tsv.ServingEngine(tsv.ServingConfig(capacity=1), sharding=object(),
                           device="cpu")
