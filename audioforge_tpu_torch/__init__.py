@@ -1,7 +1,8 @@
 """audioforge_tpu_torch — the PyTorch + CUDA port of audioforge_tpu.
 
 The multi-stream serving step (in-step Silero VAD, live chain front half,
-RNNoise or DeepFilterNet3, back half) runs on an NVIDIA GPU, with the
+RNNoise or DeepFilterNet3, back half) and the offline chain with its
+simulators (``runtime/chain.py``, ``api.py``) run on an NVIDIA GPU, with the
 per-sample recurrences and the models' per-stream element work in
 hand-written CUDA kernels (``csrc/``, built with ``nvcc`` at first use into
 ``build/audioforge_tpu_torch/``). On a CPU tensor every kernel wrapper runs

@@ -14,21 +14,30 @@ The VAD group (``vad``) and the DeepFilterNet3 model states have the same
 leaves in both packages. :func:`rnnoise_weights`, :func:`silero_weights` and
 :func:`dfn_weights` validate a model's weight arrays and make them tensors.
 
-:func:`serving_state`, :func:`routing_state` and :func:`chain_params` map
-numpy trees (for example ``jax.tree_util.tree_map(np.asarray, tree)``) to
-tensors; :func:`to_numpy` and :func:`routing_to_numpy` map a port state
-back. Every leaf round-trips; integer counters and flags keep their dtype.
+:func:`serving_state`, :func:`routing_state`, :func:`chain_state` and
+:func:`chain_params` map numpy trees (for example
+``jax.tree_util.tree_map(np.asarray, tree)``) to tensors; :func:`to_numpy`
+(serving and offline chain states) and :func:`routing_to_numpy` map a port
+state back. Every leaf round-trips; integer counters and flags keep their
+dtype.
+
+The offline chain (``runtime/chain.py``) holds its streams on one axis where
+the reference keeps any batch shape, and its static EQ as one ``(S, 5)``
+cascade ``c`` with ``z [N, S, 2]`` (f64) where the reference keeps
+``c_lo``/``c_hi`` and ``z_lo``/``z_hi [k, ..., 2]``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from .models import dfn3, rnnoise, silero
 
-__all__ = ["rnnoise_weights", "silero_weights", "dfn_weights", "chain_params", "serving_state", "routing_state",
-           "to_numpy", "routing_to_numpy"]
+__all__ = ["rnnoise_weights", "silero_weights", "dfn_weights", "chain_params", "serving_state",
+           "routing_state", "chain_state", "to_numpy", "routing_to_numpy"]
 
 # (path inside the routing state) -> leaves held in f64 by the port
 _ROUTING_F64_LEAVES = (
@@ -119,6 +128,57 @@ def serving_state(tree, device="cpu") -> dict:
     return out
 
 
+# offline chain leaves shared by every stream (no batch axis)
+_CHAIN_SHARED = (("compressor", "meter", "coeffs"),)
+_CHAIN_F64 = (("compressor", "meter", "kz"),)
+
+
+def _chain_batch_shape(tree) -> tuple:
+    return tuple(np.shape(tree["compressor"]["current_gr_db"]))
+
+
+def _map_leaves(tree, fn, path=()):
+    return {k: _map_leaves(v, fn, path + (k,)) if isinstance(v, dict) else fn(path + (k,), v)
+            for k, v in tree.items()}
+
+
+def chain_state(tree, device="cpu") -> dict:
+    """A reference offline chain state (numpy leaves, any batch shape) -> the
+    port's (one stream axis, one EQ cascade)."""
+    batch = _chain_batch_shape(tree)
+    nb, n = len(batch), math.prod(batch)
+
+    def leaf(path, v):
+        a = np.asarray(v)
+        if path not in _CHAIN_SHARED:
+            a = a.reshape((n,) + a.shape[nb:])
+        t = torch.as_tensor(np.array(a), device=device)
+        return t.to(torch.float64) if path in _CHAIN_F64 else t
+
+    out = _map_leaves({k: v for k, v in tree.items() if k != "eq"}, leaf)
+    eq = tree["eq"]
+    z = [np.moveaxis(np.asarray(eq[k]), 0, -2).reshape(n, -1, 2) for k in ("z_lo", "z_hi")]
+    out["eq"] = {
+        "c": torch.as_tensor(np.concatenate([np.asarray(eq["c_lo"]), np.asarray(eq["c_hi"])],
+                                            axis=0).astype(np.float32), device=device),
+        "z": torch.as_tensor(np.concatenate(z, axis=1), dtype=torch.float64, device=device),
+    }
+    return out
+
+
+def _chain_to_numpy(state, template) -> dict:
+    batch = _chain_batch_shape(template)
+    out = _tree_to_numpy({k: v for k, v in state.items() if k != "eq"})
+    out = _map_leaves(out, lambda path, a: a if path in _CHAIN_SHARED
+                      else a.reshape(batch + a.shape[1:]))
+    k_lo = np.shape(template["eq"]["c_lo"])[0]
+    c = state["eq"]["c"].detach().cpu().numpy()
+    z = state["eq"]["z"].detach().cpu().numpy().astype(np.float32)
+    z = np.moveaxis(z.reshape(batch + z.shape[1:]), -2, 0)
+    out["eq"] = {"c_lo": c[:k_lo], "c_hi": c[k_lo:], "z_lo": z[:k_lo], "z_hi": z[k_lo:]}
+    return out
+
+
 def _tree_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _tree_to_numpy(v) for k, v in tree.items()}
@@ -138,8 +198,11 @@ def routing_to_numpy(state) -> dict:
 
 
 def to_numpy(state, template) -> dict:
-    """A port serving state -> the reference layout (numpy). ``template`` is
-    a reference serving state (numpy) that supplies the EQ group split."""
+    """A port serving or offline chain state -> the reference layout
+    (numpy). ``template`` is a reference state of the same kind (numpy) that
+    supplies the EQ group split (and the chain's batch shape)."""
+    if "tp_detector" in template:
+        return _chain_to_numpy(state, template)
     out = _tree_to_numpy(state)
     chain = out["chain"]
     n_lo = np.shape(template["chain"]["eq"]["lo"]["z"])[1]

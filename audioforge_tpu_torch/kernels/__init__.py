@@ -41,6 +41,7 @@ __all__ = [
     "check_aligned",
     "scalar",
     "stream_of",
+    "resolve_device",
 ]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -203,6 +204,19 @@ def scalar(v, device) -> torch.Tensor:
     serving engine keeps on the device through its pointer. A tensor already
     of that type and place is returned as it is."""
     return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` as a ``torch.device``; raise when it asks for a CUDA device
+    and none is available (the entry points run on the card by default)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} runs on a CUDA device by default and none is available: "
+            "pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {dev}")
+    return dev
 
 
 def stream_of(device: torch.device) -> int:

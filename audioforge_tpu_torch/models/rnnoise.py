@@ -11,6 +11,11 @@ order ``[z | r | h~]``).
 Where the JAX package used one-hot matmuls or a barrel shifter to suit the
 TPU, this port gathers; the input high-pass is one ``biquad_cascade`` launch
 with f64 state; the GEMMs are ``torch.matmul``.
+
+:func:`rnnoise_frames` runs a take frame by frame (one CUDA graph replay a
+frame on the card, :mod:`..runtime.replay`); the ``processor_*`` functions are
+the reference's frame-staging processor (numpy staging, soft-clipped PCM
+scaling, one frame of dry delay, 15 ms strength smoothing) around it.
 """
 
 from __future__ import annotations
@@ -22,13 +27,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops import biquad
 from ..ops.dft import irdft, rdft
+from ..runtime.replay import run_take
 
 __all__ = [
     "FRAME_SIZE", "WINDOW_SIZE", "FREQ_SIZE", "NB_BANDS", "NB_FEATURES",
-    "PCM_SCALE", "PCM_MODEL_LIMIT", "load_weights", "discover_model_path",
-    "rnnoise_state_init", "frame_features", "rnnoise_frame", "soft_clip",
+    "PCM_SCALE", "PCM_MODEL_LIMIT", "LATENCY_SAMPLES", "init_params", "load_weights",
+    "discover_model_path", "default_params", "weights_source", "rnnoise_state_init",
+    "frame_features", "rnnoise_frame", "rnnoise_frames", "soft_clip",
+    "processor_init", "processor_push", "processor_process", "processor_pop",
+    "processor_soft_reset",
 ]
 
 FRAME_SIZE = 480
@@ -38,6 +48,7 @@ NB_BANDS = 22
 NB_DELTA_CEPS = 6
 NB_FEATURES = NB_BANDS + 3 * NB_DELTA_CEPS + 2  # 42
 CEPS_MEM = 8
+LATENCY_SAMPLES = FRAME_SIZE
 
 PITCH_MIN_PERIOD = 60
 PITCH_MAX_PERIOD = 768
@@ -163,6 +174,24 @@ def weights_from_numpy(arrays: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in params.items()}
 
 
+def init_params(seed: int = 0x4242) -> dict:
+    """The reference's seeded structural weights (numpy f32), drawn from the
+    same generator in the same order."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return rng.normal(0.0, 1.0 / np.sqrt(shape[0]), shape).astype(np.float32)
+
+    p = {"input_w": w(NB_FEATURES, 24), "input_b": np.zeros(24, np.float32),
+         "vad_out_w": w(24, 1), "vad_out_b": np.zeros(1, np.float32),
+         "denoise_out_w": w(96, NB_BANDS), "denoise_out_b": np.zeros(NB_BANDS, np.float32)}
+    for name, (din, dh) in _GRU_DIMS.items():
+        p[f"{name}_wi"] = w(din, 3 * dh)
+        p[f"{name}_wh"] = w(dh, 3 * dh)
+        p[f"{name}_b"] = np.zeros(3 * dh, np.float32)
+    return p
+
+
 def load_weights(path, device="cpu") -> dict:
     with np.load(path) as data:
         return weights_from_numpy({k: data[k] for k in data.files}, device)
@@ -176,6 +205,31 @@ def discover_model_path():
         return Path(env)
     candidate = Path(__file__).resolve().parents[2] / "models" / "rnnoise.npz"
     return candidate if candidate.is_file() else None
+
+
+@cache
+def _default_weights():
+    path = discover_model_path()
+    if path is None:
+        return weights_from_numpy(init_params(), "cpu"), "seeded"
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+    source = (str(np.asarray(arrays["__provenance__"]).item())
+              if "__provenance__" in arrays else "converted")
+    return weights_from_numpy(arrays, "cpu"), source
+
+
+def default_params(device="cpu") -> dict:
+    """The default weights on ``device``: a discovered archive
+    (:func:`discover_model_path`) wins, else the seeded structural weights;
+    :func:`weights_source` says which."""
+    return {k: v.to(device) for k, v in _default_weights()[0].items()}
+
+
+def weights_source() -> str:
+    """``"trained"`` or ``"converted"`` for an archive, ``"seeded"`` for the
+    structural weights."""
+    return _default_weights()[1]
 
 
 # ---------------------------------------------------------------------------
@@ -531,3 +585,106 @@ def soft_clip(x):
         over / (over + (1.0 - SOFT_CLIP_THRESHOLD)))
     return torch.where(mag <= SOFT_CLIP_THRESHOLD, x,
                        torch.sign(x) * torch.clamp_max(softened, limit_unit))
+
+
+def rnnoise_frames(params, state, frames):
+    """Denoise ``frames: [..., n_frames, 480]`` (PCM-scaled) on their device,
+    frame by frame; ``state`` holds ``prod(...)`` streams. Returns
+    ``(state, y [..., n_frames, 480], vad [..., n_frames])``."""
+    frames = torch.as_tensor(frames)
+    *lead, n_frames, _ = frames.shape
+    n = int(np.prod(lead))
+    x = frames.reshape(n, n_frames, FRAME_SIZE).transpose(0, 1)
+
+    def step(st, block):
+        st, y, aux = rnnoise_frame(params, st, block["x"])
+        return st, {"y": y, "vad": aux["vad"]}
+
+    state, rows = run_take(step, state, {"x": x}, n_frames)
+    if not rows:
+        rows = {"y": frames.new_zeros((0, n, FRAME_SIZE)), "vad": frames.new_zeros((0, n))}
+    return (state, rows["y"].transpose(0, 1).reshape(*lead, n_frames, FRAME_SIZE),
+            rows["vad"].t().reshape(*lead, n_frames))
+
+
+# ---------------------------------------------------------------------------
+# Frame-staging processor
+# ---------------------------------------------------------------------------
+
+
+def processor_init(params=None, strength: float = 1.0, sample_rate: float = 48000.0, *,
+                   device="cuda") -> dict:
+    """One stream's staging processor; the model runs on ``device`` (a CUDA
+    device unless asked otherwise)."""
+    dev = kernels.resolve_device(device, "rnnoise.processor_init")
+    params = default_params(dev) if params is None else {
+        k: v.to(dev) for k, v in params.items()}
+    frame_dt = FRAME_SIZE / sample_rate
+    return {
+        "params": params,
+        "model": rnnoise_state_init(n=1, device=dev),
+        "in_buf": np.zeros(0, np.float32),
+        "out_buf": np.zeros(0, np.float32),
+        "strength": float(np.clip(strength, 0.0, 1.0)),
+        "smoothed_strength": 1.0,
+        "smoothing_coeff": float(1.0 - np.exp(-(frame_dt / 0.015))),  # 15 ms EMA
+        "enabled": True,
+    }
+
+
+def processor_push(state, samples):
+    state = dict(state)
+    state["in_buf"] = np.concatenate([state["in_buf"], np.asarray(samples, np.float32)])
+    return state, len(np.asarray(samples))
+
+
+def processor_process(state):
+    """Process every complete staged frame: PCM scaling with the soft clip,
+    the model, the wet/dry mix at the smoothed strength (the dry path one
+    frame behind, at the model's latency). Returns ``(state, n_frames)``."""
+    state = dict(state)
+    n_frames = len(state["in_buf"]) // FRAME_SIZE
+    if n_frames == 0:
+        return state, 0
+    take = state["in_buf"][: n_frames * FRAME_SIZE]
+    state["in_buf"] = state["in_buf"][n_frames * FRAME_SIZE:]
+    if not state["enabled"]:
+        state["out_buf"] = np.concatenate([state["out_buf"], take])
+        return state, n_frames
+
+    dev = state["model"]["pitch_buf"].device
+    frames = torch.as_tensor(take.reshape(1, n_frames, FRAME_SIZE), device=dev)
+    scaled = torch.clamp(soft_clip(frames) * PCM_SCALE, -PCM_MODEL_LIMIT, PCM_MODEL_LIMIT)
+    model, wet, _ = rnnoise_frames(state["params"], state["model"], scaled)
+    wet = (wet[0] / PCM_SCALE).cpu().numpy()
+    state["model"] = model
+
+    dry_delay = state.get("dry_delay", np.zeros(FRAME_SIZE, np.float32))
+    dry_frames = np.concatenate([dry_delay[None, :], take.reshape(n_frames, FRAME_SIZE)])
+    sm = state["smoothed_strength"]
+    target = state["strength"]
+    mixed = []
+    for i in range(n_frames):
+        sm = target * state["smoothing_coeff"] + sm * (1.0 - state["smoothing_coeff"])
+        mixed.append(wet[i] * sm + dry_frames[i] * (1.0 - sm))
+    state["smoothed_strength"] = sm
+    state["dry_delay"] = dry_frames[-1]
+    state["out_buf"] = np.concatenate([state["out_buf"]] + mixed)
+    return state, n_frames
+
+
+def processor_pop(state, count):
+    state = dict(state)
+    n = min(count, len(state["out_buf"]))
+    out = state["out_buf"][:n]
+    state["out_buf"] = state["out_buf"][n:]
+    return state, out
+
+
+def processor_soft_reset(state):
+    """Clear the staging; the model's learned state stays."""
+    state = dict(state)
+    state["in_buf"] = np.zeros(0, np.float32)
+    state["out_buf"] = np.zeros(0, np.float32)
+    state["dry_delay"] = np.zeros(FRAME_SIZE, np.float32)
+    return state

@@ -18,6 +18,13 @@ serving step's smoothing and calibration). Each launches its CUDA kernel for
 a CUDA tensor and runs its plain twin for a CPU tensor.
 :func:`silero_infer` is the model as the reference's API has it, in plain
 torch.
+
+:func:`analyze_vad_probabilities` is the offline pass over a take: the
+windows' contexts are known up front, so the STFT projection, the encoder and
+the LSTM's input GEMM run once over every window, and only the recurrence
+chains, one graph replay a window on the card (a GEMM and one
+``vad_lstm_head`` launch, which also applies the 0.5 EMA and the
+calibration).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from ..ops import resample
+from ..runtime.replay import run_take
 
 __all__ = [
     "SAMPLE_RATE", "WINDOW_SIZE", "CONTEXT_SIZE", "MODEL_INPUT_SIZE",
@@ -39,7 +47,7 @@ __all__ = [
     "weights_from_numpy", "load_weights", "discover_model_path",
     "default_params", "weights_source", "stft_frames", "silero_infer",
     "vad_front", "vad_front_plain", "vad_gates", "vad_lstm_head",
-    "vad_lstm_head_plain",
+    "vad_lstm_head_plain", "analyze_vad_probabilities",
 ]
 
 SAMPLE_RATE = 16000
@@ -337,3 +345,60 @@ def _vad_lstm_head_launch(params, gates, lstm, smoothed, blocks_seen, smoothing,
                    prob.data_ptr(), avail.data_ptr(), n, warmup_blocks,
                    kernels.stream_of(dev))
     return lstm_out, smoothed_out, seen_out, prob, avail
+
+
+# ---------------------------------------------------------------------------
+# Offline pass over a take
+# ---------------------------------------------------------------------------
+
+
+def analyze_vad_probabilities(audio, sample_rate, threshold=0.48, params=None, *,
+                              device="cuda"):
+    """Calibrated posteriors of a take, one a model window (512 samples at
+    16 kHz; 48 kHz input is decimated by 3 first); the last window is
+    zero-padded. Runs on ``device`` (a CUDA device unless asked otherwise).
+    ``threshold`` is accepted for the reference's signature."""
+    del threshold
+    if sample_rate not in (16000, 48000):
+        raise ValueError("sample_rate must be 16000 or 48000")
+    dev = kernels.resolve_device(device, "analyze_vad_probabilities")
+    x = np.asarray(audio, np.float32)
+    params = {k: v.to(dev) for k, v in (default_params() if params is None
+                                        else params).items()}
+    win_in = WINDOW_SIZE * (sample_rate // SAMPLE_RATE)
+    n_windows = -(-len(x) // win_in) if len(x) else 0
+    if n_windows == 0:
+        return []
+    padded = np.zeros((1, n_windows * win_in), np.float32)
+    padded[0, :len(x)] = x
+    x16 = torch.as_tensor(padded, device=dev)
+    if sample_rate == 48000:
+        _, x16 = resample.decimate3(resample.decimate3_init(n=1, device=dev), x16)
+    windows = x16.reshape(n_windows, WINDOW_SIZE)
+    contexts = torch.cat([windows.new_zeros((1, CONTEXT_SIZE)),
+                          windows[:-1, WINDOW_SIZE - CONTEXT_SIZE:]])
+    probs = _offline_windows(params, torch.cat([contexts, windows], dim=1))
+    return [float(v) for v in probs.cpu()]
+
+
+def _offline_windows(params, model_ins):
+    """``model_ins [W, 576]`` -> calibrated probabilities ``[W]``: the input
+    side of every window at once, then the LSTM chain window by window."""
+    x_t = _encoder(params, _stft_mag(params, stft_frames(model_ins)))
+    xw = torch.matmul(x_t, params["lstm_wi"].T)  # [W, 512]
+    dev = model_ins.device
+    smoothing = kernels.scalar(0.5, dev)
+    wh_t = params["lstm_wh"].T
+    state = {"lstm": torch.zeros((1, _N_LAYERS, _LSTM_HIDDEN), device=dev),
+             "smoothed": torch.zeros(1, device=dev),
+             "seen": torch.zeros(1, dtype=torch.int32, device=dev)}
+
+    def step(st, block):
+        gates = torch.addmm(block["xw"], st["lstm"][:, 0], wh_t)
+        lstm, smoothed, seen, prob, _ = vad_lstm_head(
+            params, gates, st["lstm"], st["smoothed"], st["seen"], smoothing,
+            warmup_blocks=1)
+        return {"lstm": lstm, "smoothed": smoothed, "seen": seen}, {"prob": prob}
+
+    _, rows = run_take(step, state, {"xw": xw[:, None, :]}, xw.shape[0])
+    return rows["prob"][:, 0]

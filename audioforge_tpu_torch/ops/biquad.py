@@ -21,7 +21,7 @@ When ``fade_remaining == 0`` the two lanes are identical by construction.
 
 from __future__ import annotations
 
-from functools import cache
+from functools import cache, lru_cache
 
 import numpy as np
 import torch
@@ -32,7 +32,7 @@ __all__ = [
     "BYPASS", "LOW_SHELF", "HIGH_SHELF", "PEAKING", "NOTCH", "HIGH_PASS",
     "LOW_PASS", "MIN_BIQUAD_Q", "COEFF_CROSSFADE_MS",
     "MAX_COEFF_CROSSFADE_SAMPLES", "MAX_KERNEL_SECTIONS",
-    "crossfade_samples", "design", "df2t_step",
+    "crossfade_samples", "design", "magnitude_response_db", "df2t_step",
     "biquad_cascade", "biquad_cascade_plain", "apply_fixed",
     "unit_init", "unit_schedule", "unit_process",
 ]
@@ -112,6 +112,27 @@ def design(filter_type, frequency, gain_db, q, sample_rate):
     return out
 
 
+def magnitude_response_db(coeffs, frequencies, sample_rate) -> np.ndarray:
+    """Exact |H| in dB (host f64) at ``frequencies`` for coefficients
+    ``[..., 5]``; the result has shape ``coeffs.shape[:-1] +
+    frequencies.shape``."""
+    c = np.asarray(coeffs, np.float64)
+    freqs = np.asarray(frequencies, np.float64)
+    shape = c.shape[:-1] + (1,) * freqs.ndim
+    b0, b1, b2, a1, a2 = (c[..., i].reshape(shape) for i in range(5))
+    omega = 2.0 * np.pi * freqs / sample_rate
+    cw, sw = np.cos(omega), np.sin(omega)
+    c2w, s2w = np.cos(2.0 * omega), np.sin(2.0 * omega)
+    num_re = b0 + b1 * cw + b2 * c2w
+    num_im = -b1 * sw - b2 * s2w
+    den_re = 1.0 + a1 * cw + a2 * c2w
+    den_im = -a1 * sw - a2 * s2w
+    num_p = num_re * num_re + num_im * num_im
+    den_p = den_re * den_re + den_im * den_im
+    eps = 1e-30
+    return 10.0 * np.log10(np.maximum(num_p, eps) / np.maximum(den_p, eps))
+
+
 def df2t_step(coeffs, z1, z2, x_t):
     """One DF2T sample on broadcastable tensors: ``coeffs [..., 5]``.
     Returns ``(y, z1', z2')``."""
@@ -125,38 +146,143 @@ def df2t_step(coeffs, z1, z2, x_t):
 # --------------------------------------------------------------------------
 
 
+# samples one block operator of the plain twin covers
+_OPERATOR_CHUNK = 256
+
+
+@lru_cache(maxsize=128)
+def _section_operators(coeffs: tuple, length: int, device: torch.device):
+    """f64 operators of one static DF2T section over ``length`` samples, for
+    rows ``x [.., L]`` and states ``z [.., 2]``: ``y = x @ HT + z @ Z2Y`` and
+    ``z_end = x @ X2Z + z @ AT``. The state advances ``z' = A z + B x`` with
+    ``y = b0 x + z1``."""
+    b0, b1, b2, a1, a2 = coeffs
+    A = np.array([[-a1, 1.0], [-a2, 0.0]])
+    B = np.array([b1 - a1 * b0, b2 - a2 * b0])
+    powers = np.empty((length + 1, 2, 2))
+    powers[0] = np.eye(2)
+    for k in range(1, length + 1):
+        powers[k] = A @ powers[k - 1]
+    h = np.empty(length)  # impulse response
+    h[0] = b0
+    h[1:] = powers[:length - 1, 0, :] @ B
+    i = np.arange(length)
+    lag = i[None, :] - i[:, None]
+    HT = np.where(lag >= 0, h[np.clip(lag, 0, None)], 0.0)
+    X2Z = powers[length - 1 - i] @ B  # [L, 2]
+    f64 = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                                    device=device)
+    return f64(HT), f64(powers[:length, 0, :].T), f64(X2Z), f64(powers[length].T)
+
+
+def _static_section(coeffs: tuple, v, z0):
+    """One static section over ``v: f64 [n, T]`` from states ``z0 [n, 2]``,
+    chunk by chunk. Returns ``(y, z_end)``."""
+    y = torch.empty_like(v)
+    z = z0
+    T = v.shape[-1]
+    for lo in range(0, T, _OPERATOR_CHUNK):
+        hi = min(lo + _OPERATOR_CHUNK, T)
+        HT, Z2Y, X2Z, AT = _section_operators(coeffs, hi - lo, v.device)
+        xc = v[:, lo:hi]
+        y[:, lo:hi] = xc @ HT + z @ Z2Y
+        z = xc @ X2Z + z @ AT
+    return y, z
+
+
+def _shared_rows(c: torch.Tensor):
+    """The row every stream shares in ``c [N, 5]`` as a tuple, else None."""
+    first = c[:1]
+    return tuple(first[0].tolist()) if bool((c == first).all()) else None
+
+
 def biquad_cascade_plain(x, coeffs, z, fade_total, fade_remaining):
-    """Plain PyTorch twin of the ``biquad_cascade`` kernel (same f64 math).
+    """Plain PyTorch twin of the ``biquad_cascade`` kernel (f64 state and
+    arithmetic).
 
     ``x: f32 [N, T]``, ``coeffs: f32 [N, S, 2, 5]``, ``z: f64 [N, S, 2, 2]``,
     ``fade_total / fade_remaining: i32 [N, S]``. Returns
-    ``(y f32 [N, T], z_out f64 [N, S, 2, 2])``; promotion is the caller's."""
+    ``(y f32 [N, T], z_out f64 [N, S, 2, 2])``; promotion is the caller's.
+
+    A section whose lane coefficients every stream shares (the EQ, the
+    meters' K-weighting, the fixed high-passes) runs as exact linear block
+    operators (impulse response, state-to-output and state propagation, f64)
+    over chunks of the block; otherwise the sections run as the kernel runs
+    them, a wavefront of per-sample DF2T steps."""
     n, T = x.shape
-    f64 = torch.float64
-    c = coeffs.to(f64)
-    v = x.to(f64)
-    t_idx = torch.arange(T, dtype=f64, device=x.device)
+    S = coeffs.shape[1]
+    if S == 0:
+        return x, z.clone()
+    c64 = coeffs.to(torch.float64)
+    fading = fade_remaining > 0  # [N, S]
+    lane1_needed = [bool(fading[:, s].any()) for s in range(S)]
+    shared = [(_shared_rows(c64[:, s, 0]),
+               _shared_rows(c64[:, s, 1]) if lane1_needed[s] else ())
+              for s in range(S)]
+    if any(a is None or b is None for a, b in shared):
+        return _cascade_wavefront(x, c64, z, fade_total, fade_remaining)
+    v = x.to(torch.float64)
+    t_idx = torch.arange(T, dtype=torch.float64, device=x.device)
     z_out = torch.empty_like(z)
-    for s in range(coeffs.shape[1]):
-        cs = c[:, s]  # [N, 2, 5]
-        z1, z2 = z[:, s, :, 0], z[:, s, :, 1]
-        lanes = torch.empty((n, 2, T), dtype=f64, device=x.device)
-        for t in range(T):
-            y, z1, z2 = df2t_step(cs, z1, z2, v[:, t, None])
-            lanes[:, :, t] = y
-        total = fade_total[:, s, None].to(f64)
-        done = (fade_total[:, s] - fade_remaining[:, s])[:, None].to(f64) + 1.0
-        w = torch.where(total > 0,
-                        ((done + t_idx) / total.clamp_min(1.0)).clamp(0.0, 1.0),
+    for s in range(S):
+        y0, z0 = _static_section(shared[s][0], v, z[:, s, 0])
+        z_out[:, s, 0] = z0
+        if not lane1_needed[s]:
+            z_out[:, s, 1] = z0
+            v = y0
+            continue
+        y1, z1 = _static_section(shared[s][1], v, z[:, s, 1])
+        total = fade_total[:, s, None].to(torch.float64)
+        done = (fade_total[:, s] - fade_remaining[:, s])[:, None].to(torch.float64) + 1.0
+        w = torch.where(total > 0, ((done + t_idx) / total.clamp_min(1.0)).clamp(0.0, 1.0),
                         1.0)
-        fading = (fade_remaining[:, s] > 0)[:, None]
-        v = torch.where(fading, (1.0 - w) * lanes[:, 0] + w * lanes[:, 1],
-                        lanes[:, 0])
-        lane1 = torch.where(fading, torch.stack([z1[:, 1], z2[:, 1]], -1),
-                            torch.stack([z1[:, 0], z2[:, 0]], -1))
-        z_out[:, s, 0] = torch.stack([z1[:, 0], z2[:, 0]], -1)
-        z_out[:, s, 1] = lane1
+        fade = fading[:, s, None]
+        v = torch.where(fade, (1.0 - w) * y0 + w * y1, y0)
+        z_out[:, s, 1] = torch.where(fade, z1, z0)
     return v.to(torch.float32), z_out
+
+
+def _cascade_wavefront(x, c64, z, fade_total, fade_remaining):
+    """The cascade as a wavefront of per-sample DF2T steps: at step k section
+    s filters sample k - s, its input the output section s - 1 made at the
+    step before."""
+    n, T = x.shape
+    S = c64.shape[1]
+    f64 = torch.float64
+    b0, b1, b2, a1, a2 = c64.unbind(-1)  # [N, S, 2] each
+    v = x.to(f64)
+    z1, z2 = z[..., 0].clone(), z[..., 1].clone()  # [N, S, 2]
+    # crossfade weight of section s at its sample t
+    t_idx = torch.arange(T, dtype=f64, device=x.device)
+    total = fade_total.to(f64)[..., None]
+    done = (fade_total - fade_remaining).to(f64)[..., None] + 1.0
+    w = torch.where(total > 0, ((done + t_idx) / total.clamp_min(1.0)).clamp(0.0, 1.0),
+                    1.0)  # [N, S, T]
+    fading = fade_remaining > 0  # [N, S]
+    any_fading = bool(fading.any())
+    sec = torch.arange(S, device=x.device)
+    out_prev = torch.zeros((n, S), dtype=f64, device=x.device)
+    y = torch.empty((n, T), dtype=f64, device=x.device)
+    zero = torch.zeros((n, 1), dtype=f64, device=x.device)
+    for k in range(T + S - 1):
+        head = v[:, k:k + 1] if k < T else zero
+        inp = torch.cat([head, out_prev[:, :-1]], dim=1)[..., None]  # [N, S, 1]
+        yl = b0 * inp + z1
+        live = ((k - sec >= 0) & (k - sec < T))[:, None]  # [S, 1]
+        z1, z2 = (torch.where(live, b1 * inp - a1 * yl + z2, z1),
+                  torch.where(live, b2 * inp - a2 * yl, z2))
+        if any_fading:
+            wk = w.gather(2, (k - sec).clamp(0, T - 1).expand(n, S)[..., None])[..., 0]
+            out_prev = torch.where(fading, (1.0 - wk) * yl[..., 0] + wk * yl[..., 1],
+                                   yl[..., 0])
+        else:
+            out_prev = yl[..., 0]
+        if k >= S - 1:
+            y[:, k - S + 1] = out_prev[:, S - 1]
+    lane0 = torch.stack([z1[..., 0], z2[..., 0]], -1)
+    lane1 = torch.where(fading[..., None], torch.stack([z1[..., 1], z2[..., 1]], -1),
+                        lane0)
+    return y.to(torch.float32), torch.stack([lane0, lane1], dim=2)
 
 
 def _cascade_launch(x, coeffs, z, fade_total, fade_remaining):

@@ -145,7 +145,12 @@ def _gain_reduction(params, detector_db):
 def compressor_scan_plain(config: CompressorConfig, params, makeup_lin, state, x):
     """Plain PyTorch twin of the ``compressor_scan`` kernel: the per-sample
     step of ``make_sample_step`` over ``x: f32 [N, T]``. ``state`` holds
-    :data:`SCAN_STATE_KEYS`; returns ``(final_state, y)``."""
+    :data:`SCAN_STATE_KEYS`; returns ``(final_state, y)``.
+
+    Like the kernel, it runs only the recurrences sample by sample (the
+    sidechain high-pass, the band and RMS envelopes, the peak envelope, the
+    release and gain-reduction smoothing) and the feed-forward math between
+    them over the whole block."""
     k = _scan_consts(config)
     fs = config.sample_rate
     band_c, band_1 = util.f32_pair(k["band_c"])
@@ -157,90 +162,102 @@ def compressor_scan_plain(config: CompressorConfig, params, makeup_lin, state, x
     atk = params["attack_coeff"]
     atk_1 = 1.0 - atk
     det_rel = params["detector_release_coeff"]
+    T = x.shape[-1]
     s = dict(state)
-    y = torch.empty_like(x)
-    for t in range(x.shape[-1]):
-        x_t = x[:, t]
-        if config.sidechain_highpass_enabled:
-            det_in = params["sidechain_hp_coeff"] * (s["sc_prev_out"] + x_t
-                                                     - s["sc_prev_in"])
-            s["sc_prev_in"], s["sc_prev_out"] = x_t, det_in
-            low_c = x_t - det_in
-            presence_c = 0.65 * det_in + 0.35 * (det_in - low_c)
-            s["low_band_env_sq"] = (band_c * s["low_band_env_sq"]
-                                    + band_1 * low_c * low_c)
-            s["voiced_band_env_sq"] = (band_c * s["voiced_band_env_sq"]
-                                       + band_1 * det_in * det_in)
-            s["presence_band_env_sq"] = (band_c * s["presence_band_env_sq"]
-                                         + band_1 * presence_c * presence_c)
-            low_rms = torch.sqrt(s["low_band_env_sq"])
-            voiced_rms = torch.clamp_min(torch.sqrt(s["voiced_band_env_sq"]), 1e-8)
-            pres_rms = torch.sqrt(s["presence_band_env_sq"])
-            s["plosive_ratio"] = torch.clamp(low_rms / voiced_rms, 0.0, 32.0)
-            amount = torch.clamp((s["plosive_ratio"] - PLOSIVE_RATIO_START)
-                                 / (PLOSIVE_RATIO_FULL - PLOSIVE_RATIO_START),
-                                 0.0, 1.0)
-            penalty = 1.0 - amount * (1.0 - PLOSIVE_MIN_DETECTOR_GAIN)
-            pres_ratio = torch.clamp(pres_rms / voiced_rms, 0.0, 4.0)
-            pres_weight = 1.0 + 0.18 * torch.clamp(pres_ratio - 0.75, 0.0, 1.0)
-            det_weight = torch.clamp(penalty * pres_weight,
-                                     PLOSIVE_MIN_DETECTOR_GAIN, 1.15)
-        else:
-            det_in = x_t
-            s["plosive_ratio"] = torch.zeros_like(x_t)
-            det_weight = torch.ones_like(x_t)
+    cols = lambda seq: torch.stack(seq, dim=-1)
 
-        inst_peak_db = util.linear_to_db(torch.clamp_min(det_in.abs(), 1e-10),
-                                         -200.0)
-        peak_c = torch.where(inst_peak_db > s["peak_envelope_db"], atk, det_rel)
-        s["peak_envelope_db"] = (peak_c * s["peak_envelope_db"]
-                                 + (1.0 - peak_c) * inst_peak_db)
-        s["rms_envelope_sq"] = rms_c * s["rms_envelope_sq"] + rms_1 * det_in * det_in
-        blended = (DETECTOR_PEAK_WEIGHT
-                   * torch.pow(10.0, s["peak_envelope_db"] / 20.0)
-                   + DETECTOR_RMS_WEIGHT
-                   * torch.clamp_min(torch.sqrt(s["rms_envelope_sq"]), 1e-10))
-        detector_db = util.linear_to_db(
-            torch.clamp_min(blended, 1e-10) * torch.clamp_min(det_weight, 1e-10),
-            -200.0)
+    # ---- sidechain high-pass and its band envelopes
+    if config.sidechain_highpass_enabled:
+        hp_c = params["sidechain_hp_coeff"]
+        prev_in, prev_out, det = s["sc_prev_in"], s["sc_prev_out"], []
+        for t in range(T):
+            x_t = x[:, t]
+            prev_out = hp_c * (prev_out + x_t - prev_in)
+            prev_in = x_t
+            det.append(prev_out)
+        s["sc_prev_in"], s["sc_prev_out"] = prev_in, prev_out
+        det_in = cols(det)
+        low_c = x - det_in
+        presence_c = 0.65 * det_in + 0.35 * (det_in - low_c)
+        drives = torch.stack([band_1 * low_c * low_c, band_1 * det_in * det_in,
+                              band_1 * presence_c * presence_c])  # [3, N, T]
+        env = torch.stack([s["low_band_env_sq"], s["voiced_band_env_sq"],
+                           s["presence_band_env_sq"]])
+        envs = []
+        for t in range(T):
+            env = band_c * env + drives[:, :, t]
+            envs.append(env)
+        env_t = torch.stack(envs, dim=-1)  # [3, N, T]
+        s["low_band_env_sq"], s["voiced_band_env_sq"], s["presence_band_env_sq"] = env.unbind(0)
+        low_rms = torch.sqrt(env_t[0])
+        voiced_rms = torch.clamp_min(torch.sqrt(env_t[1]), 1e-8)
+        pres_rms = torch.sqrt(env_t[2])
+        plosive = torch.clamp(low_rms / voiced_rms, 0.0, 32.0)
+        s["plosive_ratio"] = plosive[:, -1]
+        amount = torch.clamp((plosive - PLOSIVE_RATIO_START)
+                             / (PLOSIVE_RATIO_FULL - PLOSIVE_RATIO_START), 0.0, 1.0)
+        penalty = 1.0 - amount * (1.0 - PLOSIVE_MIN_DETECTOR_GAIN)
+        pres_ratio = torch.clamp(pres_rms / voiced_rms, 0.0, 4.0)
+        pres_weight = 1.0 + 0.18 * torch.clamp(pres_ratio - 0.75, 0.0, 1.0)
+        det_weight = torch.clamp(penalty * pres_weight, PLOSIVE_MIN_DETECTOR_GAIN, 1.15)
+    else:
+        det_in = x
+        s["plosive_ratio"] = torch.zeros_like(x[:, 0])
+        det_weight = torch.ones_like(x)
 
+    # ---- peak and RMS envelopes of the detector input
+    inst_peak_db = util.linear_to_db(torch.clamp_min(det_in.abs(), 1e-10), -200.0)
+    rms_drive = rms_1 * det_in * det_in
+    pe, rms, pes, rmss = s["peak_envelope_db"], s["rms_envelope_sq"], [], []
+    for t in range(T):
+        inst = inst_peak_db[:, t]
+        peak_c = torch.where(inst > pe, atk, det_rel)
+        pe = peak_c * pe + (1.0 - peak_c) * inst
+        rms = rms_c * rms + rms_drive[:, t]
+        pes.append(pe)
+        rmss.append(rms)
+    s["peak_envelope_db"], s["rms_envelope_sq"] = pe, rms
+    blended = (DETECTOR_PEAK_WEIGHT * torch.pow(10.0, cols(pes) / 20.0)
+               + DETECTOR_RMS_WEIGHT * torch.clamp_min(torch.sqrt(cols(rmss)), 1e-10))
+    detector_db = util.linear_to_db(
+        torch.clamp_min(blended, 1e-10) * torch.clamp_min(det_weight, 1e-10), -200.0)
+    target_gr = _gain_reduction({k: params[k][:, None] for k in
+                                 ("ratio", "threshold_db", "knee_db")}, detector_db)
+
+    # ---- release time and gain-reduction smoothing
+    cur_rel, gr = s["current_release_ms"], s["current_gr_db"]
+    fast_env, slow_env = s["fast_release_env_db"], s["slow_release_env_db"]
+    grs = []
+    for t in range(T):
+        tg = target_gr[:, t]
         if config.adaptive_release:
-            sustained = torch.clamp(s["slow_release_env_db"]
-                                    / (SLOW_RELEASE_TRIGGER_DB + 3.0), 0.0, 1.0)
-            transient = torch.clamp(
-                (s["fast_release_env_db"] - s["slow_release_env_db"])
-                / (SLOW_RELEASE_TRIGGER_DB + 4.0), 0.0, 1.0)
-            syllabic = torch.clamp(sustained * sustained
-                                   * (1.0 - 0.35 * transient), 0.0, 1.0)
+            sustained = torch.clamp(slow_env / (SLOW_RELEASE_TRIGGER_DB + 3.0), 0.0, 1.0)
+            transient = torch.clamp((fast_env - slow_env) / (SLOW_RELEASE_TRIGGER_DB + 4.0),
+                                    0.0, 1.0)
+            syllabic = torch.clamp(sustained * sustained * (1.0 - 0.35 * transient), 0.0, 1.0)
             target_rel_ms = ADAPTIVE_FAST_RELEASE_MS + syllabic * (
                 ADAPTIVE_SLOW_RELEASE_MS - ADAPTIVE_FAST_RELEASE_MS)
         else:
             target_rel_ms = params["base_release_ms"]
-        cur_rel = s["current_release_ms"]
-        s["current_release_ms"] = torch.where(
-            (target_rel_ms - cur_rel).abs() > 1.0,
-            rs_c * cur_rel + rs_1 * target_rel_ms, target_rel_ms)
-        rx = -1000.0 / (torch.clamp_min(s["current_release_ms"], 1e-6) * fs)
-        rel_c = 1.0 + rx + 0.5 * rx * rx
-
-        target_gr = _gain_reduction(params, detector_db)
-        gr = s["current_gr_db"]
+        cur_rel = torch.where((target_rel_ms - cur_rel).abs() > 1.0,
+                              rs_c * cur_rel + rs_1 * target_rel_ms, target_rel_ms)
         if config.adaptive_release:
-            s["fast_release_env_db"] = torch.where(
-                target_gr > gr, atk * gr + atk_1 * target_gr,
-                fast_c * s["fast_release_env_db"] + fast_1 * target_gr)
-            s["slow_release_env_db"] = torch.where(
-                target_gr > SLOW_RELEASE_TRIGGER_DB,
-                charge_c * s["slow_release_env_db"] + charge_1 * target_gr,
-                slow_c * s["slow_release_env_db"])
-            s["current_gr_db"] = torch.maximum(s["fast_release_env_db"],
-                                               s["slow_release_env_db"])
+            fast_env = torch.where(tg > gr, atk * gr + atk_1 * tg,
+                                   fast_c * fast_env + fast_1 * tg)
+            slow_env = torch.where(tg > SLOW_RELEASE_TRIGGER_DB,
+                                   charge_c * slow_env + charge_1 * tg, slow_c * slow_env)
+            gr = torch.maximum(fast_env, slow_env)
         else:
-            gr_c = torch.where(target_gr > gr, atk, rel_c)
-            s["current_gr_db"] = gr_c * gr + (1.0 - gr_c) * target_gr
-            s["fast_release_env_db"] = s["current_gr_db"]
-            s["slow_release_env_db"] = torch.zeros_like(gr)
-        y[:, t] = x_t * torch.pow(10.0, -s["current_gr_db"] / 20.0) * makeup_lin
+            rx = -1000.0 / (torch.clamp_min(cur_rel, 1e-6) * fs)
+            gr_c = torch.where(tg > gr, atk, 1.0 + rx + 0.5 * rx * rx)
+            gr = gr_c * gr + (1.0 - gr_c) * tg
+        grs.append(gr)
+    s["current_release_ms"], s["current_gr_db"] = cur_rel, gr
+    if config.adaptive_release:
+        s["fast_release_env_db"], s["slow_release_env_db"] = fast_env, slow_env
+    else:
+        s["fast_release_env_db"], s["slow_release_env_db"] = gr, torch.zeros_like(gr)
+    y = x * torch.pow(10.0, -cols(grs) / 20.0) * makeup_lin[:, None]
     return s, y
 
 

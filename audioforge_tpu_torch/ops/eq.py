@@ -6,6 +6,11 @@ design and compact live layout (one slot per band, four for pass filters).
 The JAX package splits the cascade by band index into a double-word group
 and a plain-f32 group (``eq.py:328-333``); here every section runs with f64
 state, so the whole cascade is one unit and one ``biquad_cascade`` launch.
+
+The offline chain's static cascade (:func:`compact_cascade`) drops identity
+sections and keeps the reference's order (the sections its pole test sends
+to the double-word scan, then the rest) in one ``(S, 5)`` array; the split
+is an order here, not a precision.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from . import biquad
 __all__ = [
     "NUM_BANDS", "MAX_PASS_SECTIONS", "DEFAULT_FREQUENCIES", "DEFAULT_Q",
     "EqBandConfig", "default_bands", "validate_band", "band_section_design",
-    "eq_layout", "eq_init", "eq_set_band", "eq_process",
+    "eq_layout", "eq_init", "eq_set_band", "eq_process", "bands_to_sections",
+    "compact_cascade", "magnitude_response_db",
 ]
 
 NUM_BANDS = 10
@@ -45,6 +51,9 @@ _EQ_TYPE_TO_BIQUAD = {0: biquad.LOW_SHELF, 1: biquad.PEAKING,
                       4: biquad.HIGH_PASS, 5: biquad.LOW_PASS}
 
 
+_NAME_TO_ID = {v: k for k, v in FILTER_TYPE_NAMES.items()}
+
+
 @dataclass(frozen=True)
 class EqBandConfig:
     filter_type: int = 1  # bell
@@ -53,6 +62,13 @@ class EqBandConfig:
     q: float = DEFAULT_Q
     slope_db_per_octave: int = 12
     enabled: bool = True
+
+    @staticmethod
+    def type_id(value) -> int:
+        """A filter type's id from its id or its schema-v2 name."""
+        if isinstance(value, str):
+            return _NAME_TO_ID[value]
+        return int(value)
 
 
 def default_bands() -> list[EqBandConfig]:
@@ -112,6 +128,58 @@ def band_section_design(config: EqBandConfig, sample_rate: float) -> np.ndarray:
             q = config.q
         out[k] = biquad.design(btype, config.frequency_hz, gain, q, sample_rate)
     return out
+
+
+def bands_to_sections(bands, sample_rate: float) -> np.ndarray:
+    """Every band's MAX_PASS_SECTIONS slots -> ``(NUM_BANDS * 4, 5)`` f64."""
+    return np.concatenate([band_section_design(b, sample_rate) for b in bands],
+                          axis=0)
+
+
+def _is_identity_section(row) -> bool:
+    """The exact bypass slot, or a zero-gain design whose numerator equals
+    its denominator: both pass audio unchanged."""
+    b0, b1, b2, a1, a2 = (float(v) for v in row)
+    return abs(b0 - 1.0) < 1e-12 and abs(b1 - a1) < 1e-12 and abs(b2 - a2) < 1e-12
+
+
+DF32_POLE_ANGLE_RAD = 0.03
+DF32_POLE_RADIUS_MARGIN = 0.0025
+
+
+def _needs_df32(row) -> bool:
+    """The reference's pole test for its double-word scan: poles at a small
+    angle (low frequency) or close to the unit circle."""
+    _, _, _, a1, a2 = (float(v) for v in row)
+    if a2 <= 0.0:
+        return True
+    radius = np.sqrt(a2)
+    if radius >= 1.0:
+        return True
+    theta = np.arccos(np.clip(-a1 / (2.0 * radius), -1.0, 1.0))
+    return theta < DF32_POLE_ANGLE_RAD or (1.0 - radius) < DF32_POLE_RADIUS_MARGIN
+
+
+def compact_cascade(coeffs) -> tuple[np.ndarray, np.ndarray]:
+    """Drop identity sections from a static cascade (host f64). Returns
+    ``(c_lo, c_hi)``: the sections the reference runs in double-word f32,
+    then the rest, each in cascade order. The offline chain runs
+    ``c_lo`` then ``c_hi`` as one cascade."""
+    keep_lo, keep_hi = [], []
+    for row in np.asarray(coeffs, np.float64):
+        if not _is_identity_section(row):
+            (keep_lo if _needs_df32(row) else keep_hi).append(row)
+    return (np.asarray(keep_lo, np.float64).reshape(len(keep_lo), 5),
+            np.asarray(keep_hi, np.float64).reshape(len(keep_hi), 5))
+
+
+def magnitude_response_db(bands, frequencies, sample_rate: float) -> np.ndarray:
+    """Exact cascaded magnitude response in dB at ``frequencies`` (host
+    f64)."""
+    per_section = biquad.magnitude_response_db(
+        bands_to_sections(bands, sample_rate),
+        np.asarray(frequencies, np.float64), sample_rate)
+    return per_section.sum(axis=0)
 
 
 def eq_layout(bands=None) -> tuple:

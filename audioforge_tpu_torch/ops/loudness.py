@@ -1,9 +1,12 @@
-"""Streaming BS.1770 momentary loudness meter (block cadence).
+"""BS.1770-4 loudness: the streaming momentary meter (block cadence) and
+the offline gated integrated and momentary loudness of a take.
 
-Counterpart of ``audioforge_tpu/ops/loudness.py:48-187``: the K-weighting
-pair (high shelf + high pass, designed from the analog prototypes) runs as
+Counterpart of ``audioforge_tpu/ops/loudness.py``: the K-weighting pair (high
+shelf + high pass, designed from the analog prototypes) runs in the meter as
 one two-section ``biquad_cascade`` launch with f64 state, and the 400 ms
-window is a ring of per-block mean-square energies.
+window is a ring of per-block mean-square energies. The offline helpers
+(:func:`integrated_loudness_lufs`, :func:`momentary_slices_lufs`) are host
+numpy/scipy, as in the reference.
 
 The meter's ``coeffs`` leaf is shared by every stream (``[2, 5]``, no stream
 axis); the serving state marks it as such.
@@ -16,7 +19,10 @@ import torch
 
 from . import biquad
 
-__all__ = ["k_weighting_coefficients", "meter_init", "meter_process"]
+__all__ = ["VALID_SAMPLE_RATES", "k_weighting_coefficients", "integrated_loudness_lufs",
+           "momentary_slices_lufs", "meter_init", "meter_process"]
+
+VALID_SAMPLE_RATES = (8000, 16000, 32000, 44100, 48000, 88200, 96000)
 
 _SHELF_F0 = 1681.9744509555319
 _SHELF_GAIN_DB = 3.999843853973347
@@ -46,6 +52,60 @@ def k_weighting_coefficients(sample_rate: float) -> np.ndarray:
     hp = np.array([1.0, -2.0, 1.0, 2.0 * (K * K - 1.0) / a0,
                    (1.0 - K / q + K * K) / a0])
     return np.stack([shelf, hp])
+
+
+def _k_weight_np(x: np.ndarray, sample_rate: float) -> np.ndarray:
+    """Host f64 K-weighting of a take."""
+    from scipy.signal import lfilter
+
+    y = x.astype(np.float64)
+    for stage in k_weighting_coefficients(sample_rate):
+        y = lfilter(stage[:3], np.concatenate([[1.0], stage[3:]]), y)
+    return y
+
+
+def _block_powers(y: np.ndarray, sample_rate: int, hop_s: float) -> np.ndarray:
+    block = int(round(0.4 * sample_rate))
+    hop = max(1, int(round(hop_s * sample_rate)))
+    if len(y) < block:
+        return np.empty(0)
+    n = 1 + (len(y) - block) // hop
+    idx = np.arange(n)[:, None] * hop + np.arange(block)[None, :]
+    return np.mean(y[idx] ** 2, axis=1)
+
+
+def integrated_loudness_lufs(samples, sample_rate: int) -> float:
+    """Gated mono integrated loudness: 400 ms blocks at 75 % overlap, the
+    -70 LUFS absolute gate, then the -10 LU relative gate. Raises on a rate
+    outside :data:`VALID_SAMPLE_RATES`, an empty or non-finite take, or a
+    take with nothing above the gates."""
+    sample_rate = int(sample_rate)
+    if sample_rate not in VALID_SAMPLE_RATES:
+        raise ValueError(f"invalid sample rate: {sample_rate}")
+    x = np.asarray(samples, np.float64)
+    if x.size == 0:
+        raise ValueError("at least one sample is required")
+    if not np.all(np.isfinite(x)):
+        raise ValueError("samples must be finite")
+    power = _block_powers(_k_weight_np(x, sample_rate), sample_rate, 0.1)
+    if power.size == 0:
+        raise ValueError("audio did not produce a finite gated loudness")
+    loud = -0.691 + 10.0 * np.log10(np.maximum(power, 1e-30))
+    abs_mask = loud > -70.0
+    if not np.any(abs_mask):
+        raise ValueError("audio did not produce a finite gated loudness")
+    rel_threshold = -0.691 + 10.0 * np.log10(np.mean(power[abs_mask])) - 10.0
+    mask = abs_mask & (loud > rel_threshold)
+    if not np.any(mask):
+        raise ValueError("audio did not produce a finite gated loudness")
+    return float(-0.691 + 10.0 * np.log10(np.mean(power[mask])))
+
+
+def momentary_slices_lufs(samples, sample_rate: int, hop_s: float = 0.1) -> np.ndarray:
+    """Momentary (400 ms) loudness at ``hop_s`` cadence (host f64)."""
+    y = _k_weight_np(np.asarray(samples, np.float64), sample_rate)
+    power = _block_powers(y, sample_rate, hop_s)
+    return -0.691 + 10.0 * np.log10(np.maximum(power, 1e-30))
 
 
 def meter_init(sample_rate: float = 48000.0, block_samples: int = 480, *,

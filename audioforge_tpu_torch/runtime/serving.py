@@ -44,6 +44,9 @@ from ..models import dfn3, rnnoise, silero
 from ..ops import eq as eq_ops
 from ..ops import resample
 from . import live_chain as lc
+from .replay import clone_tree as _clone_tree
+from .replay import copy_into as _copy_into
+from .replay import leaf_pairs as _leaf_pairs
 
 __all__ = ["BLOCK", "ServingConfig", "ServingEngine"]
 
@@ -276,36 +279,6 @@ def _to_device(tree, device):
     return torch.as_tensor(np.copy(tree), device=device)
 
 
-def _clone_tree(tree):
-    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
-            for k, v in tree.items()}
-
-
-def _leaf_pairs(dst, src, out):
-    """``(dst, src)`` leaves of two trees of one layout, by ``dst``'s keys,
-    where ``src`` is not ``dst`` itself."""
-    for k, d in dst.items():
-        if isinstance(d, dict):
-            _leaf_pairs(d, src[k], out)
-        elif src[k] is not d:
-            out.append((d, src[k]))
-    return out
-
-
-def _copy_into(dst, src) -> None:
-    """Copy tree ``src`` into the tensors of tree ``dst``. A source that
-    shares memory with a written destination is cloned first, so that no
-    copy reads what another one wrote."""
-    pairs = _leaf_pairs(dst, src, [])
-    if not pairs:
-        return
-    written = {d.untyped_storage().data_ptr() for d, _ in pairs}
-    torch._foreach_copy_(
-        [d for d, _ in pairs],
-        [s.clone() if s.untyped_storage().data_ptr() in written else s
-         for _, s in pairs])
-
-
 def _copy_host_tree(dst, src) -> None:
     """Copy a tree of numpy leaves into the tensors of ``dst``."""
     for k, d in dst.items():
@@ -355,11 +328,7 @@ class ServingEngine:
             raise NotImplementedError(
                 "stream-axis sharding is not ported yet (ROADMAP queue 1, "
                 "multi-GPU)")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "ServingEngine runs on a CUDA device by default and none is "
-                "available: pass device='cpu' to run the plain PyTorch path")
+        self.device = kernels.resolve_device(device, "ServingEngine")
         self.config = config or ServingConfig()
         n = self.config.capacity
         dev = self.device

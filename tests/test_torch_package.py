@@ -24,6 +24,8 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, audioforge_tpu_torch, audioforge_tpu_torch.convert, "
             "audioforge_tpu_torch.runtime.serving, audioforge_tpu_torch.models.silero, "
             "audioforge_tpu_torch.models.dfn3, audioforge_tpu_torch.ops.resample, "
+            "audioforge_tpu_torch.runtime.chain, audioforge_tpu_torch.runtime.replay, "
+            "audioforge_tpu_torch.api, audioforge_tpu_torch.analysis.vad, "
             "audioforge_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('audioforge_tpu.') or m == 'audioforge_tpu']; "
