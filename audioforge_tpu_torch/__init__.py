@@ -1,6 +1,8 @@
 """audioforge_tpu_torch — the PyTorch + CUDA port of audioforge_tpu.
 
-The multi-stream serving step (in-step Silero VAD, live chain front half,
+The single-stream live engine (:class:`AudioProcessor`: host threads around
+three CUDA graphs captured once per topology, the suppressor engine and the
+streaming VAD), the multi-stream serving step (in-step Silero VAD, live chain front half,
 RNNoise or DeepFilterNet3, back half) and the offline chain with its
 simulators (``runtime/chain.py``, ``api.py``) run on an NVIDIA GPU, with the
 per-sample recurrences and the models' per-stream element work in
@@ -18,3 +20,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from .runtime.processor import (  # noqa: E402 — after the backend flags
+    AudioProcessor,
+    list_input_devices,
+    list_output_devices,
+    register_virtual_input,
+    register_virtual_output,
+)
+
+__all__ = ["AudioProcessor", "list_input_devices", "list_output_devices",
+           "register_virtual_input", "register_virtual_output"]

@@ -1,13 +1,20 @@
-"""Command line: ``python -m audioforge_tpu_torch serve a.wav b.wav ...``
+"""Command line of the port.
 
-Processes N 48 kHz mono 16-bit WAVs together through the batched serving
-engine (live chain and a suppressor per stream, the in-step Silero VAD with
-``--vad``) and writes ``<name>.processed.wav`` for each.
+- ``devices``: list the virtual audio endpoints.
+- ``run``: run the single-stream live engine (``AudioProcessor``) on named
+  devices, on the card unless ``--device cpu``.
+- ``diagnostics``: start the live engine, let it settle, print its
+  diagnostics dict.
+- ``serve a.wav b.wav ...``: process N 48 kHz mono 16-bit WAVs together
+  through the batched serving engine (live chain and a suppressor per
+  stream, the in-step Silero VAD with ``--vad``) and write
+  ``<name>.processed.wav`` for each.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 import wave
@@ -26,6 +33,60 @@ def _read_wav_48k_mono(path):
                              f"{handle.getsampwidth() * 8} bits)")
         raw = handle.readframes(handle.getnframes())
     return np.frombuffer(raw, "<i2").astype(np.float32) / 32767.0
+
+
+def _cmd_devices(_args) -> int:
+    from .runtime.processor import list_input_devices, list_output_devices
+
+    for direction, devices in (("input", list_input_devices()),
+                               ("output", list_output_devices())):
+        for d in devices:
+            default = " (default)" if d.is_default else ""
+            print(f"{direction}: {d.name}{default} @ {d.sample_rate} Hz")
+    return 0
+
+
+def _cmd_run(args) -> int:
+    from .runtime.processor import AudioProcessor
+
+    if args.preset:
+        raise NotImplementedError(
+            "run --preset needs the preset layer (config/, preset_io), which is "
+            "not ported yet (ROADMAP queue 1 item 8)")
+    processor = AudioProcessor(device=args.device)
+    print(processor.start(args.input_device, args.output_device))
+    try:
+        deadline = time.monotonic() + args.duration if args.duration else None
+        while deadline is None or time.monotonic() < deadline:
+            time.sleep(1.0)
+            processor.service_recovery()
+            if args.verbose:
+                d = processor.get_runtime_diagnostics()
+                print(
+                    f"in {d['input_crest_factor_db']:.0f}dB CF | "
+                    f"lufs {d['output_short_term_lufs']:.1f} | "
+                    f"gr {d['limiter_gain_reduction_db']:.1f} dB | "
+                    f"drops {d['input_dropped_samples']}"
+                )
+    except KeyboardInterrupt:
+        pass
+    finally:
+        processor.stop()
+    return 0
+
+
+def _cmd_diagnostics(args) -> int:
+    from .runtime.processor import AudioProcessor
+
+    processor = AudioProcessor(device=args.device)
+    print(processor.start(args.input_device, args.output_device))
+    try:
+        time.sleep(args.settle)
+        print(json.dumps(processor.get_runtime_diagnostics(), indent=2,
+                         default=str))
+    finally:
+        processor.stop()
+    return 0
 
 
 def _cmd_serve(args) -> int:
@@ -78,8 +139,31 @@ def _cmd_serve(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="audioforge_tpu_torch",
-        description="PyTorch/CUDA port of the audioforge serving engine.")
+        description="PyTorch/CUDA port of audioforge: the live engine and the "
+                    "serving engine.")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    sub.add_parser("devices", help="list virtual audio endpoints")
+
+    run = sub.add_parser("run", help="run the single-stream live engine")
+    run.add_argument("--input-device", default=None)
+    run.add_argument("--output-device", default=None)
+    run.add_argument("--device", default="cuda",
+                     help="torch device: cuda (default) or cpu")
+    run.add_argument("--preset", default=None,
+                     help="path to a preset .json (not ported yet)")
+    run.add_argument("--duration", type=float, default=0.0,
+                     help="seconds to run (0 = until interrupted)")
+    run.add_argument("--verbose", action="store_true")
+
+    diag = sub.add_parser("diagnostics",
+                          help="start, settle, print the diagnostics dict")
+    diag.add_argument("--input-device", default=None)
+    diag.add_argument("--output-device", default=None)
+    diag.add_argument("--device", default="cuda",
+                      help="torch device: cuda (default) or cpu")
+    diag.add_argument("--settle", type=float, default=2.0)
+
     serve = sub.add_parser(
         "serve", help="process N WAVs together through the batched serving engine")
     serve.add_argument("inputs", nargs="+", help="48 kHz mono 16-bit WAV files")
@@ -94,7 +178,9 @@ def main(argv=None) -> int:
     serve.add_argument("--span", type=int, default=100,
                        help="blocks per step_many call")
     args = parser.parse_args(argv)
-    return _cmd_serve(args)
+    commands = {"devices": _cmd_devices, "run": _cmd_run,
+                "diagnostics": _cmd_diagnostics, "serve": _cmd_serve}
+    return commands[args.command](args)
 
 
 if __name__ == "__main__":

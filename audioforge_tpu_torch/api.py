@@ -636,7 +636,7 @@ def _suppressor_pass(audio, strength, device):
     PCM scaling, 15 ms strength smoothing)."""
     state = rn.processor_init(strength=float(strength), device=device)
     state, _ = rn.processor_push(state, audio)
-    state, _ = rn.processor_process(state)
+    state, _ = rn.processor_process(state, take=True)
     state, out = rn.processor_pop(state, len(audio))
     if len(out) < len(audio):
         out = np.concatenate([out, np.zeros(len(audio) - len(out), np.float32)])

@@ -21,6 +21,14 @@ leaves in both packages. :func:`rnnoise_weights`, :func:`silero_weights` and
 state back. Every leaf round-trips; integer counters and flags keep their
 dtype.
 
+The single-stream engine's states: :func:`live_state` (the reference's live
+chain state of one stream, no batch axis) becomes the port's ``n=1`` state;
+:func:`rnnoise_processor_state`, :func:`dfn_processor_state` and
+:func:`vad_stream_state` map the reference's processor and streaming VAD
+dicts (host fields as they are, the model state with a stream axis, the
+Silero LSTM state ``[2, 1, 128]`` as ``[1, 2, 128]``). :func:`to_numpy`
+maps each back, given the reference dict as its template.
+
 The offline chain (``runtime/chain.py``) holds its streams on one axis where
 the reference keeps any batch shape, and its static EQ as one ``(S, 5)``
 cascade ``c`` with ``z [N, S, 2]`` (f64) where the reference keeps
@@ -37,7 +45,8 @@ import torch
 from .models import dfn3, rnnoise, silero
 
 __all__ = ["rnnoise_weights", "silero_weights", "dfn_weights", "chain_params", "serving_state",
-           "routing_state", "chain_state", "to_numpy", "routing_to_numpy"]
+           "routing_state", "chain_state", "to_numpy", "routing_to_numpy", "live_state",
+           "rnnoise_processor_state", "dfn_processor_state", "vad_stream_state"]
 
 # (path inside the routing state) -> leaves held in f64 by the port
 _ROUTING_F64_LEAVES = (
@@ -197,12 +206,110 @@ def routing_to_numpy(state) -> dict:
     return _routing_layout(_tree_to_numpy(state))
 
 
+# (path inside a live chain state) -> leaves every stream shares
+_LIVE_SHARED = (("meter_coeff",), ("out_lufs", "coeffs"), ("compressor", "meter", "coeffs"))
+
+
+def _with_stream_axis(tree, shared=()):
+    return _map_leaves(tree, lambda path, v: np.asarray(v) if path in shared
+                       else np.asarray(v)[None])
+
+
+def _without_stream_axis(tree, shared=()):
+    return _map_leaves(tree, lambda path, v: v if path in shared else v[0])
+
+
+def live_state(tree, device="cpu") -> dict:
+    """A reference live chain state of one stream (numpy leaves, no batch
+    axis) -> the port's ``n=1`` state."""
+    return serving_state({"chain": _with_stream_axis(tree, _LIVE_SHARED)}, device)["chain"]
+
+
+def _host_fields(proc, skip):
+    return {k: (np.array(v, np.float32) if isinstance(v, np.ndarray) else v)
+            for k, v in proc.items() if k not in skip}
+
+
+def rnnoise_processor_state(proc, device="cpu") -> dict:
+    """A reference RNNoise processor dict (numpy) -> the port's."""
+    out = _host_fields(proc, ("params", "model"))
+    out["params"] = rnnoise_weights(proc["params"], device)
+    model = _tree_to_torch(_with_stream_axis(proc["model"]), device)
+    model["hp_mem"] = model["hp_mem"].to(torch.float64)
+    out.update(model=model, replay=None)
+    return out
+
+
+def dfn_processor_state(proc, device="cpu") -> dict:
+    """A reference DeepFilterNet3 processor dict (numpy) -> the port's."""
+    out = _host_fields(proc, ("params", "model"))
+    out["params"] = dfn_weights(proc["params"], device)
+    out.update(model=_tree_to_torch(_with_stream_axis(proc["model"]), device),
+               replay=None)
+    return out
+
+
+def vad_stream_state(state, device="cpu") -> dict:
+    """A reference streaming VAD dict (numpy) -> the port's."""
+    lstm = np.asarray(state["lstm_state"], np.float32)  # [2, 1, 128]
+    model = {
+        "context": np.asarray(state["context"], np.float32)[None],
+        "lstm": np.ascontiguousarray(np.moveaxis(lstm, 1, 0)),
+        "dec3": {"hist": np.asarray(state["dec3"]["hist"], np.float32)[None]},
+        "smoothed": np.full(1, state["smoothed_prob"], np.float32),
+        "seen": np.full(1, 1 if state["has_inference"] else 0, np.int32),
+    }
+    return {
+        "params": silero_weights(state["params"], device),
+        "config": dict(state["config"]),
+        "buffer": np.array(state["buffer"], np.float32),
+        "model": _tree_to_torch(model, device),
+        "smoothed_prob": float(state["smoothed_prob"]),
+        "has_inference": bool(state["has_inference"]),
+        "replay": None,
+    }
+
+
+def _weights_to_numpy(params) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def _processor_to_numpy(proc) -> dict:
+    out = {k: v for k, v in proc.items() if k not in ("params", "model", "replay")}
+    out["params"] = _weights_to_numpy(proc["params"])
+    out["model"] = _without_stream_axis(_tree_to_numpy(proc["model"]))
+    return out
+
+
+def _vad_stream_to_numpy(state) -> dict:
+    m = _tree_to_numpy(state["model"])
+    return {
+        "params": _weights_to_numpy(state["params"]),
+        "config": dict(state["config"]),
+        "buffer": np.array(state["buffer"], np.float32),
+        "context": m["context"][0],
+        "lstm_state": np.ascontiguousarray(np.moveaxis(m["lstm"], 0, 1)),
+        "dec3": {"hist": m["dec3"]["hist"][0]},
+        "smoothed_prob": float(state["smoothed_prob"]),
+        "has_inference": bool(state["has_inference"]),
+    }
+
+
 def to_numpy(state, template) -> dict:
-    """A port serving or offline chain state -> the reference layout
-    (numpy). ``template`` is a reference state of the same kind (numpy) that
-    supplies the EQ group split (and the chain's batch shape)."""
+    """A port state -> the reference layout (numpy). ``template`` is a
+    reference state of the same kind (numpy): a serving, offline chain or
+    live chain state (it supplies the EQ group split and the batch shape),
+    an RNNoise or DeepFilterNet3 processor dict, or a streaming VAD dict."""
     if "tp_detector" in template:
         return _chain_to_numpy(state, template)
+    if "lstm_state" in template:
+        return _vad_stream_to_numpy(state)
+    if "in_buf" in template:
+        return _processor_to_numpy(state)
+    if "meter_coeff" in template:
+        chain = to_numpy({"chain": state},
+                         {"chain": _with_stream_axis(template, _LIVE_SHARED)})["chain"]
+        return _without_stream_axis(chain, _LIVE_SHARED)
     out = _tree_to_numpy(state)
     chain = out["chain"]
     n_lo = np.shape(template["chain"]["eq"]["lo"]["z"])[1]

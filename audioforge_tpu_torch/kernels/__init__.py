@@ -13,11 +13,14 @@ Each launcher returns ``cudaGetLastError()``; :func:`launch` raises when it is
 not 0 and otherwise adds one to the kernel's entry in :data:`launch_counts`.
 A replay of a captured CUDA graph launches without Python: the serving
 engine adds the launches its capture recorded to :data:`launch_counts` on
-every replay.
+every replay. Inside :func:`recording_launches` a thread's launches go to a
+dict of its own instead (a capture records its graph's launches there while
+another thread keeps launching).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -25,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -34,6 +38,8 @@ __all__ = [
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
+    "add_launches",
+    "recording_launches",
     "build",
     "library",
     "launch",
@@ -90,9 +96,39 @@ KERNELS = {
 launch_counts = {name: 0 for name in KERNELS}
 
 
+_counts_lock = threading.Lock()
+_local = threading.local()
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _counts_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (kernel -> launches) to :data:`launch_counts`, or to
+    the calling thread's recording."""
+    rec = getattr(_local, "recording", None)
+    if rec is not None:
+        for name, k in counts.items():
+            rec[name] = rec.get(name, 0) + k
+        return
+    with _counts_lock:
+        for name, k in counts.items():
+            launch_counts[name] += k
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Count the calling thread's launches into the yielded dict, not into
+    :data:`launch_counts`, until the block ends."""
+    outer = getattr(_local, "recording", None)
+    _local.recording = {}
+    try:
+        yield _local.recording
+    finally:
+        _local.recording = outer
 
 
 def _find_nvcc() -> str:
@@ -174,7 +210,7 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(
             f"{name} launch failed: {lib.afk_error_string(err).decode()} "
             f"(cudaError {err})")
-    launch_counts[name] += 1
+    add_launches({name: 1})
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:

@@ -17,8 +17,16 @@ between them: :func:`dfn_features` (power, ERB means, the norms and both
 feature sets after the rfft) and :func:`dfn_spec_synth` (post filter, ERB
 spread, the deep filter on the low bins and the attenuation limit before the
 irfft). Each launches its CUDA kernel for a CUDA tensor and runs its plain
-twin for a CPU tensor. The processor API of the reference (``processor_*``)
-is not ported yet (ROADMAP queue 1, the single-stream engine).
+twin for a CPU tensor.
+
+:func:`dfn_frames` runs a take frame by frame (one CUDA graph replay a frame
+on the card). The ``processor_*`` functions are the reference's frame-staging
+processor for one stream: numpy staging, the dry path through the model's
+alignment delay, the per-frame strength EMA, and the reference's
+``backend_failed`` passthrough, which latches when the model gives a
+non-finite frame (product semantics of the reference, not a fallback from
+the card). Its model step is a :class:`~..runtime.replay.BlockReplay` kept
+in the processor's state from its first frame on.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..runtime.replay import BlockReplay, run_take
 
 __all__ = [
     "FRAME_SIZE", "WINDOW_SIZE", "FREQ_SIZE", "NB_ERB", "NB_DF", "DF_ORDER",
@@ -43,7 +52,9 @@ __all__ = [
     "configured_deepfilter_runtime_paths", "external_paths_allowed",
     "resolve_weight_path", "default_params", "weights_source", "dfn_state_init",
     "dfn_frame", "dfn_features", "dfn_features_plain", "dfn_spec_synth",
-    "dfn_spec_synth_plain",
+    "dfn_spec_synth_plain", "dfn_frames", "latency_samples", "frame_replay",
+    "processor_init", "processor_push", "processor_prepare", "processor_process",
+    "processor_pop", "processor_soft_reset",
 ]
 
 SAMPLE_RATE = 48000
@@ -694,3 +705,156 @@ def dfn_frame(params, state, x_frame, atten_lim_db=DEFAULT_ATTEN_LIM_DB,
     new_state["synthesis_mem"] = y[:, FRAME_SIZE:]
     out = state["synthesis_mem"] + y[:, :FRAME_SIZE]
     return new_state, out, {"erb_gains": erb_gains, "lsnr": lsnr}
+
+
+def dfn_frames(params, state, frames, atten_lim_db=DEFAULT_ATTEN_LIM_DB,
+               post_filter_beta=DEFAULT_POST_FILTER_BETA):
+    """Enhance ``frames [..., n, 480]`` frame by frame on their device;
+    ``state`` holds ``prod(...)`` streams. Returns ``(state, y [..., n,
+    480])``."""
+    frames = torch.as_tensor(frames)
+    *lead, n_frames, _ = frames.shape
+    n = int(np.prod(lead))
+    x = frames.reshape(n, n_frames, FRAME_SIZE).transpose(0, 1)
+    atten = kernels.scalar(atten_lim_db, frames.device)
+    beta = kernels.scalar(post_filter_beta, frames.device)
+
+    def step(st, block):
+        st, y, _ = dfn_frame(params, st, block["x"], atten, beta)
+        return st, {"y": y}
+
+    state, rows = run_take(step, state, {"x": x}, n_frames)
+    if not rows:
+        return state, frames.new_zeros(frames.shape)
+    return state, rows["y"].transpose(0, 1).reshape(*lead, n_frames, FRAME_SIZE)
+
+
+# ---------------------------------------------------------------------------
+# Frame-staging processor with failure semantics
+# ---------------------------------------------------------------------------
+
+
+def latency_samples(low_latency: bool) -> int:
+    """LL: one frame; standard: three frames (two of lookahead)."""
+    return FRAME_SIZE if low_latency else 3 * FRAME_SIZE
+
+
+def processor_init(params=None, strength: float = 1.0, low_latency: bool = True,
+                   atten_lim_db: float = DEFAULT_ATTEN_LIM_DB,
+                   post_filter_beta: float = DEFAULT_POST_FILTER_BETA, *,
+                   device="cuda") -> dict:
+    """One stream's staging processor; the model runs on ``device`` (a CUDA
+    device unless asked otherwise)."""
+    atten, beta = validate_runtime_config(atten_lim_db, post_filter_beta)
+    dev = kernels.resolve_device(device, "dfn3.processor_init")
+    params = default_params(low_latency) if params is None else params
+    return {
+        "params": {k: v.to(dev) for k, v in params.items()},
+        "model": dfn_state_init(n=1, lookahead=not low_latency, device=dev),
+        "in_buf": np.zeros(0, np.float32),
+        "out_buf": np.zeros(0, np.float32),
+        # the dry path waits for the model's latency
+        "dry_delay": np.zeros(latency_samples(low_latency), np.float32),
+        "strength": float(np.clip(strength, 0.0, 1.0)),
+        "smoothed_strength": 1.0,
+        "smoothing_coeff": float(1.0 - np.exp(-(FRAME_SIZE / 48000.0) / 0.015)),
+        "low_latency": bool(low_latency),
+        "atten_lim_db": atten,
+        "post_filter_beta": beta,
+        "backend_failed": False,
+        "enabled": True,
+        "replay": None,  # the frame step, built at the first processed frame
+    }
+
+
+def processor_push(state, samples):
+    state = dict(state)
+    state["in_buf"] = np.concatenate([state["in_buf"], np.asarray(samples, np.float32)])
+    return state, len(np.asarray(samples))
+
+
+def frame_replay(params, model_state, atten_lim_db=DEFAULT_ATTEN_LIM_DB,
+                 post_filter_beta=DEFAULT_POST_FILTER_BETA, *,
+                 k_max: int = 8) -> BlockReplay:
+    """One stream's frame step over ``model_state`` (``n=1``): the model's
+    output frame (``wet``)."""
+    dev = model_state["analysis_mem"].device
+    atten = kernels.scalar(atten_lim_db, dev)
+    beta = kernels.scalar(post_filter_beta, dev)
+
+    def step(st, block):
+        st, y, _ = dfn_frame(params, st, block["x"][None], atten, beta)
+        return st, {"wet": y[0]}
+
+    return BlockReplay(step, model_state, {"x": (FRAME_SIZE,)}, device=dev,
+                       k_max=k_max)
+
+
+def processor_prepare(state):
+    """Build the state's frame step now and, on the card, capture it, so
+    that the first frame pays no capture; no frame is processed."""
+    state = dict(state)
+    if state.get("replay") is None:
+        state["replay"] = frame_replay(state["params"], state["model"],
+                                       state["atten_lim_db"], state["post_filter_beta"])
+    state["replay"].prepare()
+    return state
+
+
+def processor_process(state):
+    """Process every staged frame. A non-finite model frame marks the
+    backend failed for good; the processor then passes the latency-aligned
+    dry signal through (the model state it had advanced is not used again).
+    Returns ``(state, n_frames)``."""
+    state = dict(state)
+    n_frames = len(state["in_buf"]) // FRAME_SIZE
+    if n_frames == 0:
+        return state, 0
+    take = state["in_buf"][: n_frames * FRAME_SIZE]
+    state["in_buf"] = state["in_buf"][n_frames * FRAME_SIZE:]
+
+    dry_stream = np.concatenate([state["dry_delay"], take])
+    dry_aligned = dry_stream[: n_frames * FRAME_SIZE]
+    state["dry_delay"] = dry_stream[n_frames * FRAME_SIZE:]
+
+    if state["backend_failed"] or not state["enabled"]:
+        state["out_buf"] = np.concatenate([state["out_buf"], dry_aligned])
+        return state, n_frames
+
+    if state.get("replay") is None:
+        state["replay"] = frame_replay(state["params"], state["model"],
+                                       state["atten_lim_db"], state["post_filter_beta"],
+                                       k_max=max(8, min(n_frames, 256)))
+    wet = state["replay"].run(take.reshape(n_frames, FRAME_SIZE))["wet"].reshape(-1)
+    if not np.all(np.isfinite(wet)):
+        state["backend_failed"] = True
+        state["out_buf"] = np.concatenate([state["out_buf"], dry_aligned])
+        return state, n_frames
+
+    sm = state["smoothed_strength"]
+    target = state["strength"]
+    mixed = []
+    for i in range(n_frames):
+        sm = target * state["smoothing_coeff"] + sm * (1.0 - state["smoothing_coeff"])
+        lo, hi = i * FRAME_SIZE, (i + 1) * FRAME_SIZE
+        mixed.append(wet[lo:hi] * sm + dry_aligned[lo:hi] * (1.0 - sm))
+    state["smoothed_strength"] = sm
+    state["out_buf"] = np.concatenate([state["out_buf"]] + mixed)
+    return state, n_frames
+
+
+def processor_pop(state, count):
+    state = dict(state)
+    n = min(count, len(state["out_buf"]))
+    out = state["out_buf"][:n]
+    state["out_buf"] = state["out_buf"][n:]
+    return state, out
+
+
+def processor_soft_reset(state):
+    """Clear the staging; the model's state and the failed flag stay."""
+    state = dict(state)
+    state["in_buf"] = np.zeros(0, np.float32)
+    state["out_buf"] = np.zeros(0, np.float32)
+    state["dry_delay"] = np.zeros(latency_samples(state["low_latency"]), np.float32)
+    return state

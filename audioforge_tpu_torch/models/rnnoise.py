@@ -15,7 +15,10 @@ with f64 state; the GEMMs are ``torch.matmul``.
 :func:`rnnoise_frames` runs a take frame by frame (one CUDA graph replay a
 frame on the card, :mod:`..runtime.replay`); the ``processor_*`` functions are
 the reference's frame-staging processor (numpy staging, soft-clipped PCM
-scaling, one frame of dry delay, 15 ms strength smoothing) around it.
+scaling, one frame of dry delay, 15 ms strength smoothing) around one
+stream's frame step, a :class:`~..runtime.replay.BlockReplay` that the
+processor's state keeps from its first call on (on the card: captured once,
+then one replay a frame).
 """
 
 from __future__ import annotations
@@ -30,14 +33,16 @@ import torch
 from .. import kernels
 from ..ops import biquad
 from ..ops.dft import irdft, rdft
-from ..runtime.replay import run_take
+from ..runtime.replay import BlockReplay, copy_into, run_take
 
 __all__ = [
     "FRAME_SIZE", "WINDOW_SIZE", "FREQ_SIZE", "NB_BANDS", "NB_FEATURES",
     "PCM_SCALE", "PCM_MODEL_LIMIT", "LATENCY_SAMPLES", "init_params", "load_weights",
     "discover_model_path", "default_params", "weights_source", "rnnoise_state_init",
     "frame_features", "rnnoise_frame", "rnnoise_frames", "soft_clip",
-    "processor_init", "processor_push", "processor_process", "processor_pop",
+    "frame_replay", "processor_init", "processor_push", "processor_prepare",
+    "processor_process",
+    "processor_pop",
     "processor_soft_reset",
 ]
 
@@ -629,6 +634,7 @@ def processor_init(params=None, strength: float = 1.0, sample_rate: float = 4800
         "smoothed_strength": 1.0,
         "smoothing_coeff": float(1.0 - np.exp(-(frame_dt / 0.015))),  # 15 ms EMA
         "enabled": True,
+        "replay": None,  # the frame step, built at the first processed frame
     }
 
 
@@ -638,29 +644,66 @@ def processor_push(state, samples):
     return state, len(np.asarray(samples))
 
 
-def processor_process(state):
+def frame_replay(params, model_state, *, k_max: int = 8) -> BlockReplay:
+    """One stream's frame step over ``model_state`` (``n=1``): the soft clip
+    and PCM scaling of the frame, the model, and the wet frame back at unit
+    scale (``wet``)."""
+
+    def step(st, block):
+        x = torch.clamp(soft_clip(block["x"][None]) * PCM_SCALE,
+                        -PCM_MODEL_LIMIT, PCM_MODEL_LIMIT)
+        st, y, _ = rnnoise_frame(params, st, x)
+        return st, {"wet": y[0] / PCM_SCALE}
+
+    return BlockReplay(step, model_state, {"x": (FRAME_SIZE,)},
+                       device=model_state["pitch_buf"].device, k_max=k_max)
+
+
+def processor_prepare(state):
+    """Build the state's frame step now and, on the card, capture it, so
+    that the first frame pays no capture; no frame is processed."""
+    state = dict(state)
+    if state.get("replay") is None:
+        state["replay"] = frame_replay(state["params"], state["model"])
+    state["replay"].prepare()
+    return state
+
+
+def processor_process(state, *, take: bool = False):
     """Process every complete staged frame: PCM scaling with the soft clip,
     the model, the wet/dry mix at the smoothed strength (the dry path one
-    frame behind, at the model's latency). Returns ``(state, n_frames)``."""
+    frame behind, at the model's latency). ``state["model"]`` is the model's
+    static state, updated in place. A live caller runs the model through the
+    state's frame replay (built at the first frame, then replayed for every
+    burst); ``take=True`` runs the staged frames as one take through
+    :func:`rnnoise_frames` (one graph for the take), as an offline caller
+    that stages a whole signal does. Returns ``(state, n_frames)``."""
     state = dict(state)
     n_frames = len(state["in_buf"]) // FRAME_SIZE
     if n_frames == 0:
         return state, 0
-    take = state["in_buf"][: n_frames * FRAME_SIZE]
+    frames_np = state["in_buf"][: n_frames * FRAME_SIZE]
     state["in_buf"] = state["in_buf"][n_frames * FRAME_SIZE:]
     if not state["enabled"]:
-        state["out_buf"] = np.concatenate([state["out_buf"], take])
+        state["out_buf"] = np.concatenate([state["out_buf"], frames_np])
         return state, n_frames
 
-    dev = state["model"]["pitch_buf"].device
-    frames = torch.as_tensor(take.reshape(1, n_frames, FRAME_SIZE), device=dev)
-    scaled = torch.clamp(soft_clip(frames) * PCM_SCALE, -PCM_MODEL_LIMIT, PCM_MODEL_LIMIT)
-    model, wet, _ = rnnoise_frames(state["params"], state["model"], scaled)
-    wet = (wet[0] / PCM_SCALE).cpu().numpy()
-    state["model"] = model
+    frames = frames_np.reshape(n_frames, FRAME_SIZE)
+    if take:
+        dev = state["model"]["pitch_buf"].device
+        x = torch.as_tensor(frames[None], device=dev)
+        scaled = torch.clamp(soft_clip(x) * PCM_SCALE, -PCM_MODEL_LIMIT, PCM_MODEL_LIMIT)
+        model, wet, _ = rnnoise_frames(state["params"], state["model"], scaled)
+        copy_into(state["model"], model)
+        wet = (wet[0] / PCM_SCALE).cpu().numpy()
+    else:
+        if state.get("replay") is None:
+            # a burst of the live engine is at most k_max frames
+            state["replay"] = frame_replay(state["params"], state["model"])
+        wet = state["replay"].run(frames)["wet"]
 
     dry_delay = state.get("dry_delay", np.zeros(FRAME_SIZE, np.float32))
-    dry_frames = np.concatenate([dry_delay[None, :], take.reshape(n_frames, FRAME_SIZE)])
+    dry_frames = np.concatenate([dry_delay[None, :], frames])
     sm = state["smoothed_strength"]
     target = state["strength"]
     mixed = []

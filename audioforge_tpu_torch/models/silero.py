@@ -19,6 +19,15 @@ a CUDA tensor and runs its plain twin for a CPU tensor.
 :func:`silero_infer` is the model as the reference's API has it, in plain
 torch.
 
+:func:`vad_stream_init` / :func:`vad_stream_process` are the reference's
+single-stream worker: one 1,536-sample window at 48 kHz a call (512 at 16
+kHz), decimated by :func:`~..ops.resample.decimate3` to 512 samples behind
+the 64 of context, then the STFT GEMM, the encoder, the LSTM's GEMMs and the
+``vad_lstm_head`` kernel with the stream's ``smoothing`` and the
+calibration, as one :class:`~..runtime.replay.BlockReplay` a window.
+``vad_front`` is not used there: it has the serving layout (a 480-sample
+block rolled into the window by 160), which does not fit a whole window.
+
 :func:`analyze_vad_probabilities` is the offline pass over a take: the
 windows' contexts are known up front, so the STFT projection, the encoder and
 the LSTM's input GEMM run once over every window, and only the recurrence
@@ -38,7 +47,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from ..ops import resample
-from ..runtime.replay import run_take
+from ..runtime.replay import BlockReplay, run_take
 
 __all__ = [
     "SAMPLE_RATE", "WINDOW_SIZE", "CONTEXT_SIZE", "MODEL_INPUT_SIZE",
@@ -47,7 +56,8 @@ __all__ = [
     "weights_from_numpy", "load_weights", "discover_model_path",
     "default_params", "weights_source", "stft_frames", "silero_infer",
     "vad_front", "vad_front_plain", "vad_gates", "vad_lstm_head",
-    "vad_lstm_head_plain", "analyze_vad_probabilities",
+    "vad_lstm_head_plain", "analyze_vad_probabilities", "vad_stream_init",
+    "vad_stream_prepare", "vad_stream_process",
 ]
 
 SAMPLE_RATE = 16000
@@ -345,6 +355,100 @@ def _vad_lstm_head_launch(params, gates, lstm, smoothed, blocks_seen, smoothing,
                    prob.data_ptr(), avail.data_ptr(), n, warmup_blocks,
                    kernels.stream_of(dev))
     return lstm_out, smoothed_out, seen_out, prob, avail
+
+
+# ---------------------------------------------------------------------------
+# Streaming worker (one stream, a window a call)
+# ---------------------------------------------------------------------------
+
+
+def vad_stream_init(sample_rate: int = 48000, threshold: float = 0.5,
+                    smoothing: float = 0.5, pre_gain: float = 1.0, params=None, *,
+                    device="cuda") -> dict:
+    """One stream's streaming state; the model runs on ``device`` (a CUDA
+    device unless asked otherwise). The window's graph is built at the first
+    inference and kept in the state (``"replay"``)."""
+    if sample_rate not in (16000, 48000):
+        raise ValueError("sample_rate must be 16000 or 48000")
+    dev = kernels.resolve_device(device, "vad_stream_init")
+    params = default_params() if params is None else params
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "params": {k: v.to(dev) for k, v in params.items()},
+        "config": {
+            "sample_rate": sample_rate,
+            "threshold": float(threshold),
+            "smoothing": float(smoothing),
+            "pre_gain": float(max(pre_gain, 0.1)),
+            "window_in": WINDOW_SIZE * (sample_rate // SAMPLE_RATE),
+        },
+        "buffer": np.zeros(0, np.float32),
+        "model": {
+            "context": torch.zeros((1, CONTEXT_SIZE), **f32),
+            "lstm": torch.zeros((1, _N_LAYERS, _STATE_DIM), **f32),
+            "dec3": resample.decimate3_init(n=1, device=dev),
+            "smoothed": torch.zeros(1, **f32),
+            "seen": torch.zeros(1, dtype=torch.int32, device=dev),
+        },
+        "smoothed_prob": 0.0,
+        "has_inference": False,
+        "replay": None,
+    }
+
+
+def _window_replay(state) -> BlockReplay:
+    cfg, params = state["config"], state["params"]
+    dev = params["lstm_wi"].device
+    pre_gain = kernels.scalar(cfg["pre_gain"], dev)
+    smoothing = kernels.scalar(cfg["smoothing"], dev)
+    decimate = cfg["sample_rate"] == 48000
+
+    def step(st, block):
+        x = block["x"][None]
+        dec3 = st["dec3"]
+        if decimate:
+            dec3, x = resample.decimate3(dec3, x)
+        model_in = torch.cat([st["context"], x], dim=-1) * pre_gain
+        gates = vad_gates(params, stft_frames(model_in), st["lstm"][:, 0])
+        lstm, smoothed, seen, prob, _ = vad_lstm_head(
+            params, gates, st["lstm"], st["smoothed"], st["seen"], smoothing,
+            warmup_blocks=1)
+        new = {"context": x[:, WINDOW_SIZE - CONTEXT_SIZE:], "lstm": lstm,
+               "dec3": dec3, "smoothed": smoothed, "seen": seen}
+        return new, {"probability": prob[0], "smoothed": smoothed[0]}
+
+    return BlockReplay(step, state["model"], {"x": (cfg["window_in"],)}, device=dev,
+                       k_max=1)
+
+
+def vad_stream_prepare(state):
+    """Build the window's graph now and, on the card, capture it, so that
+    the first window pays no capture; no window is inferred."""
+    state = dict(state)
+    if state["replay"] is None:
+        state["replay"] = _window_replay(state)
+    state["replay"].prepare()
+    return state
+
+
+def vad_stream_process(state, samples):
+    """Feed samples (1-D, at the configured rate); at most one window is
+    inferred a call, as the reference does. Returns ``(state, calibrated
+    probability)``; ``state["model"]`` is the window graph's static state,
+    updated in place."""
+    cfg = state["config"]
+    buf = np.concatenate([state["buffer"], np.asarray(samples, np.float32).ravel()])
+    win = cfg["window_in"]
+    if len(buf) < win:
+        return dict(state, buffer=buf), float(
+            calibrate_probability(np.float32(state["smoothed_prob"])))
+    state = dict(state, buffer=buf[win:])
+    if state["replay"] is None:
+        state["replay"] = _window_replay(state)
+    out = state["replay"].run(buf[None, :win])
+    state["smoothed_prob"] = float(out["smoothed"][0])
+    state["has_inference"] = True
+    return state, float(out["probability"][0])
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ import torch
 from . import util
 from .scan import limiter_gain_scan, sliding_window_max
 
-__all__ = ["LimiterConfig", "limiter_init", "limiter_params", "limiter_process"]
+__all__ = ["LimiterConfig", "limiter_init", "limiter_params", "limiter_process",
+           "latency_samples"]
 
 MAX_LOOKAHEAD_SAMPLES = 1024
 
@@ -77,3 +78,8 @@ def limiter_process(config: LimiterConfig, state, x, params):
         "peak_gr_db": torch.maximum(state["peak_gr_db"], block_gr_db),
     }
     return new_state, y, {"peak_gr_db": block_gr_db}
+
+
+def latency_samples(config: LimiterConfig) -> int:
+    """The lookahead delay the limiter adds to the chain's latency."""
+    return config.lookahead_samples if config.enabled else 0

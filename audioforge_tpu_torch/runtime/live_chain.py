@@ -10,6 +10,11 @@ values are ``[N]`` tensors and the batch axis is explicit.
   block-cadence VAD auto-gate, smart gate.
 - :func:`back_block`: de-esser -> EQ -> compressor -> lookahead limiter ->
   true-peak limiter -> output clamp, meters and momentary LUFS.
+- :func:`front_run` / :func:`back_run`: a burst of ``k`` blocks of one
+  stream through a half, for the single-stream engine. Each runs a
+  :class:`~audioforge_tpu_torch.runtime.replay.BlockReplay` of its half
+  (:func:`front_replay`, :func:`back_replay`): ``k`` replays of the one-block
+  graph on the card, the half block by block on the CPU.
 
 Leaves listed in :data:`SHARED_LEAVES` are constants shared by every stream
 (no stream axis); slot resets leave them alone.
@@ -32,10 +37,12 @@ from ..ops import loudness as loud_ops
 from ..ops import routing as route_ops
 from ..ops import true_peak as tp_ops
 from ..ops import util
+from .replay import BlockReplay
 
 __all__ = ["BLOCK_SAMPLES", "SHARED_LEAVES", "LiveChainConfig", "live_params",
            "live_init", "front_block", "back_block",
-           "effective_limiter_ceiling_db"]
+           "effective_limiter_ceiling_db", "front_replay", "back_replay",
+           "front_run", "back_run", "chain_latency_samples"]
 
 BLOCK_SAMPLES = 480
 CAREFUL_OUTPUT_CEILING_DB = -1.5
@@ -298,3 +305,108 @@ def back_block(config: LiveChainConfig, params, state, x, evidence):
         output_lufs=out_lufs,
     )
     return new_state, y, metrics
+
+
+# ---------------------------------------------------------------------------
+# One stream, a burst of blocks at a time (the single-stream engine)
+# ---------------------------------------------------------------------------
+
+_EVIDENCE_KEYS = ("vad_probability", "vad_reliability", "noise_floor_db",
+                  "live_noise_reliability")
+
+
+def front_replay(config: LiveChainConfig, params, state, *, k_max: int = 8) -> BlockReplay:
+    """The front half of one stream (``state`` and ``params`` with ``n=1``)
+    as a :class:`BlockReplay`. A block's input row is the block, the VAD
+    probability and its freshness (1.0 or 0.0); its outputs are ``y`` and
+    the front half's metrics, one value each."""
+
+    def step(st, block):
+        vad = block["vad"]
+        st, y, m = front_block(config, params, st, block["x"][None], vad[0:1],
+                               vad[1:2] > 0.5)
+        return st, {"y": y[0], **{k: v[0] for k, v in m.items()}}
+
+    return BlockReplay(step, state, {"x": (BLOCK_SAMPLES,), "vad": (2,)},
+                       device=state["in_rms_acc"].device, k_max=k_max)
+
+
+def back_replay(config: LiveChainConfig, params, state, *, evidence: bool = True,
+                k_max: int = 8) -> BlockReplay:
+    """The back half of one stream as a :class:`BlockReplay`. A block's
+    input row is the block and the auto makeup's evidence (the four values
+    of ``_EVIDENCE_KEYS``; ignored with ``evidence=False``, which runs the
+    compressor without evidence)."""
+
+    def step(st, block):
+        ev = None
+        if evidence:
+            e = block["evidence"]
+            ev = {k: e[i:i + 1] for i, k in enumerate(_EVIDENCE_KEYS)}
+        st, y, m = back_block(config, params, st, block["x"][None], ev)
+        return st, {"y": y[0], **{k: v[0] for k, v in m.items()}}
+
+    return BlockReplay(step, state,
+                       {"x": (BLOCK_SAMPLES,), "evidence": (len(_EVIDENCE_KEYS),)},
+                       device=state["in_rms_acc"].device, k_max=k_max)
+
+
+def _host_rows(xs) -> np.ndarray:
+    if isinstance(xs, torch.Tensor):
+        xs = xs.detach().cpu().numpy()
+    return np.asarray(xs, np.float32).reshape(-1, BLOCK_SAMPLES)
+
+
+def _replay_for(replay, state, build):
+    if replay is None:
+        return build()
+    if replay.state is not state:
+        raise ValueError("the replay was built over another state tree")
+    return replay
+
+
+def front_run(config: LiveChainConfig, params, state, xs, vad_probability,
+              vad_available, *, replay: BlockReplay | None = None):
+    """The front half over ``xs [k, 480]`` of one stream, the same VAD
+    snapshot for every block. ``state`` is updated in place and returned;
+    outputs and metrics come back as host arrays with a leading ``k`` axis:
+    ``(state, ys [k, 480], metrics)``. Pass the ``replay`` of
+    :func:`front_replay` over this ``state`` to replay its graph; without
+    one, a new one is built (on the card that is one capture per call)."""
+    xs = _host_rows(xs)
+    rows = np.empty((xs.shape[0], BLOCK_SAMPLES + 2), np.float32)
+    rows[:, :BLOCK_SAMPLES] = xs
+    rows[:, BLOCK_SAMPLES] = float(vad_probability)
+    rows[:, BLOCK_SAMPLES + 1] = 1.0 if bool(vad_available) else 0.0
+    replay = _replay_for(replay, state, lambda: front_replay(
+        config, params, state, k_max=max(1, xs.shape[0])))
+    out = replay.run(rows)
+    return state, out.pop("y"), out
+
+
+def back_run(config: LiveChainConfig, params, state, xs, evidence, *,
+             replay: BlockReplay | None = None):
+    """The back half over ``xs [k, 480]``; ``evidence`` maps the auto
+    makeup's inputs to ``[k]`` values, or is None. Returns ``(state, ys,
+    metrics)`` as :func:`front_run` does."""
+    xs = _host_rows(xs)
+    rows = np.zeros((xs.shape[0], BLOCK_SAMPLES + len(_EVIDENCE_KEYS)), np.float32)
+    rows[:, :BLOCK_SAMPLES] = xs
+    if evidence is not None:
+        for i, k in enumerate(_EVIDENCE_KEYS):
+            rows[:, BLOCK_SAMPLES + i] = np.asarray(evidence[k], np.float32).reshape(-1)
+    replay = _replay_for(replay, state, lambda: back_replay(
+        config, params, state, evidence=evidence is not None,
+        k_max=max(1, xs.shape[0])))
+    out = replay.run(rows)
+    return state, out.pop("y"), out
+
+
+def chain_latency_samples(config: LiveChainConfig, suppressor_latency: int = 0) -> int:
+    """The chain's algorithmic latency: the suppressor's frames, the
+    limiter's lookahead, the true-peak limiter's lookahead and its polyphase
+    interpolator's group delay."""
+    total = int(suppressor_latency) + lim_ops.latency_samples(config.limiter)
+    if config.limiter_enabled:
+        total += tp_ops.LIMITER_LOOKAHEAD_SAMPLES + (tp_ops.TAPS_PER_PHASE - 1) // 2
+    return total

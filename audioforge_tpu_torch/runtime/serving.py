@@ -44,6 +44,7 @@ from ..models import dfn3, rnnoise, silero
 from ..ops import eq as eq_ops
 from ..ops import resample
 from . import live_chain as lc
+from .replay import capture_graph
 from .replay import clone_tree as _clone_tree
 from .replay import copy_into as _copy_into
 from .replay import leaf_pairs as _leaf_pairs
@@ -576,31 +577,15 @@ class ServingEngine:
 
     def _capture(self) -> None:
         """Capture :meth:`_step_in_place` on the static state as a CUDA
-        graph. One eager warm-up step on a copy of the state, on the capture
-        stream, first creates what the step sets up lazily (cached device
-        constants, the cuFFT plan, the cuBLAS workspace, the kernels'
+        graph (``replay.capture_graph``: one eager warm-up step on a copy of
+        the state first creates what the step sets up lazily, the cached
+        device constants, the cuFFT plan, the cuBLAS workspace, the kernels'
         attributes). The kernel launches the capture recorded are added to
         ``kernels.launch_counts`` on every replay; the warm-up's and the
         capture's own are not counted. A failed capture raises."""
-        with self._lock, torch.cuda.device(self.device):
-            counts = dict(kernels.launch_counts)
-            stream = torch.cuda.Stream(self.device)
-            stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(stream):
-                self._step_in_place(_clone_tree(self._state))
-            torch.cuda.current_stream(self.device).wait_stream(stream)
-            before = dict(kernels.launch_counts)
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            t0 = time.perf_counter()
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode="thread_local"):
-                out = self._step_in_place(self._state)
-            graph.instantiate()
-            self.capture_seconds = time.perf_counter() - t0
-            self._graph_launches = {k: v - before[k]
-                                    for k, v in kernels.launch_counts.items()
-                                    if v > before[k]}
-            kernels.launch_counts.update(counts)
+        with self._lock:
+            graph, out, self._graph_launches, self.capture_seconds = capture_graph(
+                self.device, self._step_in_place, self._state)
             self._graph, self._graph_out = graph, out
 
     def _run(self):
@@ -611,8 +596,7 @@ class ServingEngine:
         if self._graph is None:
             self._capture()
         self._graph.replay()
-        for name, k in self._graph_launches.items():
-            kernels.launch_counts[name] += k
+        kernels.add_launches(self._graph_launches)
         return self._graph_out
 
     def _advance(self, n_blocks: int, ext_vad_prob, ext_vad_avail):

@@ -1,7 +1,7 @@
 """On-card smoke test of audioforge_tpu_torch (needs one CUDA GPU).
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases, in
-the order they run ([8]-[10] after [4], [11]-[12] last), each of which stops the script with
+the order they run ([8]-[10] after [4], [11]-[13] last), each of which stops the script with
 a non-zero exit when it fails, and each followed by its wall-clock time:
 
 0. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -84,7 +84,20 @@ a non-zero exit when it fails, and each followed by its wall-clock time:
    the gate/suppressor study in both orders), ``analyze_vad_probabilities``
    at 16 and 48 kHz and ``resample`` on the card against ``device="cpu"``
    on 0.3-1 s takes, then each on a 10 s take on the card (seconds per
-   call).
+   call);
+13. live engine: the single-stream ``AudioProcessor`` with no suppressor,
+   RNNoise, DeepFilterNet3-LL and DeepFilterNet3 (``AUDIOFORGE_ENABLE_
+   DEEPFILTER=1`` for the phase): (a) ``_process_block`` over 300 blocks with
+   a VAD snapshot, output finite within the ceiling, the first 8 within 1e-3
+   RMS of ``device="cpu"``, launches per block as expected, the graphs
+   captured at the first block and none after, the DeepFilterNet3 backend
+   available and not failed, the host time per block (also split by stage
+   over 100 more blocks) and each graph's replay alone on the card; (b) the threads and the VAD worker free-running 5 s on
+   a virtual source and sink (no engine error, no capture after the start;
+   per-block DSP time, replays per block); (c) 10 s in real time (drops,
+   underruns, p99: information) with a topology change half way (its
+   captures, stall and memory); then (d) the seeded control storm of
+   ``runtime/stress_harness.py`` (120 blocks, bounded output).
 
 Phase [2] also holds the kernels at the offline path's own shapes (one
 stream of 882 samples at 44.1 kHz, the live EQ's 4800-sample blocks through
@@ -93,7 +106,8 @@ stream of 882 samples at 44.1 kHz, the live EQ's 4800-sample blocks through
 
 The line before the last is a JSON object with every kernel's launches (on
 the full-chain run; the model stages' kernels on their own paths' runs,
-the DeepFilterNet3 kernels summed over [9] and [10]), error against its twin (the worst over its
+the DeepFilterNet3 kernels summed over [9] and [10]; plus each kernel's
+launches in [13](a) and the VAD worker's in [13](b)), error against its twin (the worst over its
 configurations), times and bound (of its first configuration); the last
 line is ``{"ok": true, "device": {...}}``. compare_kernels.py times the
 kernels of two checkouts on phase [2]'s inputs (:func:`timed_calls`).
@@ -199,6 +213,19 @@ def speech_like(n: int, n_blocks: int, seed: int) -> np.ndarray:
     return x.astype(np.float32)
 
 
+def _voice_on(t: np.ndarray, phase) -> np.ndarray:
+    """Where ``mic_capture``'s voice sounds: a 3 Hz on/off envelope."""
+    return np.sin(2 * np.pi * 3.0 * t + phase) > -0.2
+
+
+def voiced_blocks(n_blocks: int, seed: int) -> np.ndarray:
+    """Whether the voice of ``mic_capture(1, n_blocks, seed)`` sounds through
+    each whole block (its phase is that function's first draw)."""
+    phase = np.random.default_rng(seed).uniform(0, 2 * np.pi, (1, 1))
+    t = np.arange(n_blocks * BLOCK) / FS
+    return _voice_on(t, phase)[0].reshape(n_blocks, BLOCK).all(axis=1)
+
+
 def mic_capture(n: int, n_blocks: int, seed: int) -> np.ndarray:
     """Four stream classes (i % 4) under a voice: 0 hum at 50.4 Hz with its
     harmonic, 1 hum at 59.7 Hz, 2 sibilance (0.25 at 6.8 kHz over a 0.05
@@ -208,7 +235,7 @@ def mic_capture(n: int, n_blocks: int, seed: int) -> np.ndarray:
     phase = rng.uniform(0, 2 * np.pi, (n, 1))
     f0 = rng.uniform(120.0, 200.0, (n, 1))
     voiced = sum(np.sin(2 * np.pi * f0 * h * t + h * phase) / h for h in range(1, 5))
-    voice = 0.08 * voiced * (np.sin(2 * np.pi * 3.0 * t + phase) > -0.2)
+    voice = 0.08 * voiced * _voice_on(t, phase)
     cls = np.arange(n)[:, None] % 4
     x = voice + 0.003 * rng.standard_normal((n, t.size))
     x += (cls == 0) * (0.1 * np.sin(2 * np.pi * 50.4 * t + phase)
@@ -2322,6 +2349,395 @@ def phase12_simulators(card: str) -> None:
               f"on the card ({card})", flush=True)
 
 
+LIVE_BLOCKS = 300            # [13](a): blocks through _process_block per suppressor
+LIVE_CPU_BLOCKS = 8          # then held against device="cpu" from the card's state
+LIVE_SEEK_BLOCKS = 48        # more blocks in which the voiced stretch for them is sought
+LIVE_LEAD_BLOCKS = 6         # voiced blocks before them: above the chain's latency
+LIVE_TOL_RMS = 1e-3          # card against CPU: error RMS, and error RMS / the CPU's RMS
+LIVE_MIN_RMS = 3e-3          # the CPU's output RMS over the compared blocks, at least
+LIVE_SPLIT_BLOCKS = 100      # blocks after them timed by stage on the host clock
+LIVE_FREE_RUN_S = 5.0        # [13](b): free-run seconds with the threads
+LIVE_PACED_S = 10.0          # [13](c): real-time seconds
+LIVE_STRESS_ITERATIONS = 200  # [13](d): seeded control storm on the free-running engine
+LIVE_BASE = {"biquad_cascade": 4, "limiter_gain_scan": 2, "compressor_scan": 1,
+             "gate_scan": 1}
+# suppressor -> (noise model or None, expected launches per block at one stream)
+LIVE_SETTINGS = {
+    "none": (None, LIVE_BASE),
+    "rnnoise": ("rnnoise", dict(LIVE_BASE, biquad_cascade=5)),
+    "DFN3-LL": ("deepfilter-ll", dict(LIVE_BASE, dfn_features=1, dfn_spec_synth=1)),
+    "DFN3 standard": ("deepfilter", dict(LIVE_BASE, dfn_features=1, dfn_spec_synth=1)),
+}
+
+
+def _live_processor(device: str, model):
+    from audioforge_tpu_torch.runtime.processor import AudioProcessor
+
+    p = AudioProcessor(device=device)
+    p.set_rnnoise_enabled(model is not None)
+    if model is not None:
+        check(p.set_noise_model(model), f"set_noise_model({model!r}) refused")
+    return p
+
+
+def _live_blocks(p, audio: np.ndarray, n_blocks: int, after_first=None):
+    """``n_blocks`` blocks of ``audio`` through ``p._process_block`` with a
+    fixed fresh VAD snapshot (no threads). Returns the outputs, the host
+    seconds per block, and ``(p, state, config, params, engine)``."""
+    from audioforge_tpu_torch.models import suppressor as supp
+
+    config, params, topo, par, _ = p._snapshot_control()
+    state = p._fresh_state(config, None)
+    engine = supp.engine_init(topo["noise_model"], par["suppressor_strength"],
+                              device=p.device)
+    delay = np.zeros(engine["latency_samples"], np.float32)
+    p._vad_state = {"probability": 0.7, "timestamp": time.perf_counter() + 3600.0,
+                    "available": True}
+    ys, secs = [], []
+    for b in range(n_blocks):
+        t0 = time.perf_counter()
+        state, y, engine, delay = p._process_block(
+            config, params, state, audio[b:b + 1], engine, delay, topo)
+        secs.append(time.perf_counter() - t0)
+        ys.append(y)
+        if b == 0 and after_first is not None:
+            after_first()
+    p._engine = engine
+    return np.stack(ys), np.asarray(secs), (state, config, params, engine, delay, topo)
+
+
+def _to_cpu(tree):
+    """A copy of a live state (chain state, suppressor engine, delay line)
+    on the CPU: tensors and arrays copied, a frame graph dropped (the CPU
+    processor builds its own eager step at its first frame)."""
+    from audioforge_tpu_torch.runtime.replay import BlockReplay
+
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu").clone()
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    if isinstance(tree, BlockReplay):
+        return None
+    return tree
+
+
+def _live_card_vs_cpu(p, model, ctx, audio: np.ndarray, start: int):
+    """Hand the card's live state after block ``start`` to a ``device="cpu"``
+    processor and run both over the LIVE_CPU_BLOCKS blocks from ``start``.
+    Returns ``(card, cpu, ctx)``: both outputs and the card's context after
+    them."""
+    state, config, params, engine, delay, topo = ctx
+    cpu = _live_processor("cpu", model)
+    ccfg, cparams, ctopo, _, _ = cpu._snapshot_control()
+    cpu._vad_state = dict(p._vad_state)
+    cstate, cengine, cdelay = _to_cpu((state, engine, delay))
+    ys, ycpu = [], []
+    for b in range(start, start + LIVE_CPU_BLOCKS):
+        state, y, engine, delay = p._process_block(
+            config, params, state, audio[b:b + 1], engine, delay, topo)
+        cstate, yc, cengine, cdelay = cpu._process_block(
+            ccfg, cparams, cstate, audio[b:b + 1], cengine, cdelay, ctopo)
+        ys.append(y)
+        ycpu.append(yc)
+    return (np.stack(ys).astype(np.float64), np.stack(ycpu).astype(np.float64),
+            (state, config, params, engine, delay, topo))
+
+
+def _live_host_split(p, ctx, audio: np.ndarray, n_blocks: int) -> str:
+    """Mean host ms a block of ``_process_block`` by stage over ``n_blocks``
+    more blocks (information): ``front_run`` and ``back_run`` (each a pinned
+    copy each way, the replays and the wait), the suppressor engine's calls
+    (its numpy staging and the frame graph's round trip), and the rest (the
+    VAD snapshot, evidence, metric publication)."""
+    from audioforge_tpu_torch.models import suppressor as supp
+    from audioforge_tpu_torch.runtime import live_chain as lc
+
+    state, config, params, engine, delay, topo = ctx
+    seconds = collections.Counter()
+    stages = [(lc, "front_run", "front_run"), (lc, "back_run", "back_run"),
+              (supp, "engine_push", "suppressor"), (supp, "engine_process", "suppressor"),
+              (supp, "engine_pop", "suppressor")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
+
+    def timed(label, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            seconds[label] += time.perf_counter() - t0
+            return out
+        return run
+
+    for (mod, name, label), (_, _, fn) in zip(stages, originals):
+        setattr(mod, name, timed(label, fn))
+    try:
+        t0 = time.perf_counter()
+        for b in range(n_blocks):
+            state, _, engine, delay = p._process_block(
+                config, params, state, audio[b % audio.shape[0]][None], engine, delay, topo)
+        total = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    ms = {k: 1e3 * v / n_blocks for k, v in seconds.items()}
+    rest = 1e3 * total / n_blocks - sum(ms.values())
+    return (f"total {1e3 * total / n_blocks:.3f}: front_run {ms.get('front_run', 0.0):.3f}, "
+            f"suppressor {ms.get('suppressor', 0.0):.3f}, back_run "
+            f"{ms.get('back_run', 0.0):.3f}, the rest {rest:.3f}")
+
+
+class _LoopSource:
+    """A virtual input that loops a take."""
+
+    def __init__(self, audio):
+        self.audio, self.pos = audio, 0
+
+    def __call__(self, n):
+        idx = (self.pos + np.arange(n)) % self.audio.size
+        self.pos = (self.pos + n) % self.audio.size
+        return self.audio[idx]
+
+
+def _live_threads(card: str, name: str, model, audio: np.ndarray, seconds: float,
+                  paced: bool, change_at=None) -> dict:
+    """Start the engine on a looping virtual source and a counting sink for
+    ``seconds`` (``realtime_pacing`` = ``paced``); optionally switch the
+    topology (de-esser on) at ``change_at`` s. Returns what it read."""
+    from audioforge_tpu_torch.runtime import processor as proc
+    from audioforge_tpu_torch.runtime.replay import BlockReplay
+
+    sink = {"blocks": 0, "peak": 0.0, "finite": True}
+
+    def count(block):
+        sink["blocks"] += 1
+        sink["peak"] = max(sink["peak"], float(np.abs(block).max()))
+        sink["finite"] &= bool(np.isfinite(block).all())
+
+    proc.register_virtual_input("smoke-mic", lambda: _LoopSource(audio))
+    proc.register_virtual_output("smoke-sink", lambda: count)
+    p = _live_processor(DEVICE, model)
+    p.realtime_pacing = paced
+    replays0, captures0 = BlockReplay.replays, BlockReplay.captures
+    cap_s0 = BlockReplay.capture_seconds_total
+    t0 = time.perf_counter()
+    p.start("smoke-mic", "smoke-sink")
+    start_s = time.perf_counter() - t0
+    out = {"start_s": start_s}
+    blocks0 = p._counters["blocks_processed"]
+    if change_at is not None:
+        time.sleep(change_at)
+        n_before, mem0 = len(p._dsp_times), torch.cuda.memory_allocated()
+        cap_before, captures_before = BlockReplay.capture_seconds_total, BlockReplay.captures
+        t_change = time.perf_counter()
+        p.set_deesser_enabled(True)
+        # the new topology's front and back graphs, captured by the DSP thread
+        while (BlockReplay.captures < captures_before + 2
+               and time.perf_counter() - t_change < seconds - change_at):
+            time.sleep(0.005)
+        captured_s = time.perf_counter() - t_change
+        time.sleep(max(0.0, seconds - change_at - captured_s))
+        after = list(p._dsp_times)[n_before:]
+        out.update(change_ms=max(after) if after else float("nan"),
+                   change_captures=BlockReplay.captures - captures_before,
+                   change_capture_s=BlockReplay.capture_seconds_total - cap_before,
+                   change_wall_s=captured_s,
+                   change_mib=(torch.cuda.memory_allocated() - mem0) / 2**20)
+    else:
+        time.sleep(seconds)
+    d = p.get_runtime_diagnostics()
+    blocks = p._counters["blocks_processed"] - blocks0
+    times = np.asarray(p._dsp_times, np.float64)
+    p.stop()
+    out.update(diag=d, blocks=blocks, times=times, sink=sink,
+               replays=BlockReplay.replays - replays0,
+               captures=BlockReplay.captures - captures0,
+               capture_s=BlockReplay.capture_seconds_total - cap_s0,
+               graphs=len(p._graphs), error=d["last_stream_error"],
+               backend_failed=p.noise_backend_failed(),
+               backend_error=p.noise_backend_error())
+    check(d["rt_error_code"] == 0 and d["last_stream_error"] is None,
+          f"[13] {name}: engine error {d['rt_error_name']}: {d['last_stream_error']}")
+    check(not out["backend_failed"], f"[13] {name}: noise backend failed: "
+          f"{out['backend_error']}")
+    check(sink["finite"], f"[13] {name}: non-finite output")
+    return out
+
+
+def _pcts(times: np.ndarray) -> str:
+    if not times.size:
+        return "no blocks"
+    return (f"p50 {np.percentile(times, 50):.3f} / p99 {np.percentile(times, 99):.3f} / "
+            f"max {times.max():.3f} ms over {times.size} blocks")
+
+
+def phase13_live_engine(card: str) -> dict:
+    """The single-stream live engine (``AudioProcessor``) on the card for
+    each suppressor setting: (a) ``_process_block`` directly over
+    LIVE_BLOCKS blocks with a VAD snapshot (output finite within the
+    ceiling; launches per block as expected; then, in a voiced stretch
+    after them, the card's state handed to ``device="cpu"`` and both run
+    over LIVE_CPU_BLOCKS blocks: error RMS within LIVE_TOL_RMS, and within
+    LIVE_TOL_RMS of the CPU's RMS, which must reach LIVE_MIN_RMS (the
+    compared output is live audio, not the start-up silence); no capture after the first block; the
+    DeepFilterNet3 backend available and not failed; each graph's replay
+    alone and a host split by stage: information), (b) the threads
+    free-running for LIVE_FREE_RUN_S s with the VAD worker (no engine error,
+    no capture after the start; per-block DSP time, replays per block), (c)
+    paced in real time for LIVE_PACED_S s with a topology change half way
+    (its captures checked; drops, underruns, p99, the stall and memory:
+    information). Then (d) the seeded control storm. Returns the launches of
+    (a) and (b) by kernel."""
+    import os
+
+    from audioforge_tpu_torch import kernels
+    from audioforge_tpu_torch.models import suppressor as supp
+    from audioforge_tpu_torch.runtime import live_chain as lc
+    from audioforge_tpu_torch.runtime import ringbuffer
+    from audioforge_tpu_torch.runtime.replay import BlockReplay
+    from audioforge_tpu_torch.runtime.stress_harness import run_seeded_control_dsp_stress
+
+    check(ringbuffer.native_ring_available(), "[13] the native ring did not build")
+    os.environ["AUDIOFORGE_ENABLE_DEEPFILTER"] = "1"  # the product's own opt-in
+    total = collections.Counter()
+    ceiling = 10.0 ** (lc.effective_limiter_ceiling_db(-0.5, True) / 20.0)
+    n_audio = LIVE_BLOCKS + LIVE_SEEK_BLOCKS
+    audio = mic_capture(1, n_audio, 31)[0].reshape(n_audio, BLOCK)
+    voiced = voiced_blocks(n_audio, 31)
+    span = LIVE_LEAD_BLOCKS + LIVE_CPU_BLOCKS
+    start = next((b for b in range(LIVE_BLOCKS + LIVE_LEAD_BLOCKS, n_audio - LIVE_CPU_BLOCKS + 1)
+                  if voiced[b - LIVE_LEAD_BLOCKS:b + LIVE_CPU_BLOCKS].sum() == span), None)
+    check(start is not None, f"[13] no {span} voiced blocks after block {LIVE_BLOCKS}")
+    loop = mic_capture(1, 200, 32)[0]
+    try:
+        for name, (model, per_block) in LIVE_SETTINGS.items():
+            t0 = time.perf_counter()
+            # (a) deterministic
+            p = _live_processor(DEVICE, model)
+            captures0, mem0 = BlockReplay.captures, torch.cuda.memory_allocated()
+            first = {}
+
+            def after_first():
+                torch.cuda.synchronize()
+                first.update(captures=BlockReplay.captures - captures0,
+                             mib=(torch.cuda.memory_allocated() - mem0) / 2**20,
+                             at=BlockReplay.captures)
+                kernels.reset_launch_counts()
+
+            ys, secs, ctx = _live_blocks(p, audio, LIVE_BLOCKS, after_first)
+            state, config, params, engine = ctx[:4]
+            counts = dict(kernels.launch_counts)
+            n = LIVE_BLOCKS - 1
+            check(BlockReplay.captures == first["at"],
+                  f"[13] {name}: {BlockReplay.captures - first['at']} captures after "
+                  "the first block")
+            check(first["captures"] == (3 if model else 2),
+                  f"[13] {name}: {first['captures']} graphs captured at the first block")
+            check(bool(np.isfinite(ys).all()), f"[13] {name}: non-finite output")
+            peak = float(np.abs(ys).max())
+            check(peak <= ceiling + 1e-6, f"[13] {name}: peak {peak} above {ceiling}")
+            for kname, total_k in counts.items():
+                want = per_block.get(kname, 0) * n
+                check(total_k == want, f"[13] {name}: {kname} {total_k} launches over "
+                      f"{n} blocks, expected {per_block.get(kname, 0)} per block")
+            total.update(counts)
+            # the card runs on to the voiced stretch, then card against CPU (before
+            # the replays timed alone below advance the card's state)
+            state, config, params, engine, delay, topo = ctx
+            for b in range(LIVE_BLOCKS, start):
+                state, _, engine, delay = p._process_block(
+                    config, params, state, audio[b:b + 1], engine, delay, topo)
+            ycard, ycpu, ctx = _live_card_vs_cpu(
+                p, model, (state, config, params, engine, delay, topo), audio, start)
+            engine = ctx[3]
+            diff = ycard - ycpu
+            rms = float(np.sqrt(np.mean(diff ** 2)))
+            ref_rms = float(np.sqrt(np.mean(ycpu ** 2)))
+            diag = supp.engine_diagnostics(engine)
+            if model is not None and model.startswith("deepfilter"):
+                check(diag["backend_available"] and not diag["backend_failed"],
+                      f"[13] {name}: DeepFilterNet3 backend {diag}")
+            graphs = p._graphs_for(config, params, state)
+            replay_ms = {k: cuda_ms(lambda r=r: (r._idx.zero_(), r.graph.replay()), 50)
+                         for k, r in graphs.items()}
+            if model is not None:
+                frame = engine["proc"]["replay"]
+                replay_ms["suppressor frame"] = cuda_ms(
+                    lambda: (frame._idx.zero_(), frame.graph.replay()), 50)
+            split = _live_host_split(p, ctx, audio, LIVE_SPLIT_BLOCKS)
+            print(f"[13] {name} (a) {LIVE_BLOCKS} blocks through _process_block: peak "
+                  f"{peak:.4f} (ceiling {ceiling:.4f}); launches per block "
+                  f"{ {k: v / n for k, v in counts.items() if v} }; graphs captured at "
+                  f"the first block {first['captures']}, after it "
+                  f"{BlockReplay.captures - first['at']}; graph memory {first['mib']:.1f} "
+                  f"MiB; host ms per block {_pcts(1e3 * secs[1:])}; replay alone on the "
+                  f"card (ms) { {k: round(v, 4) for k, v in replay_ms.items()} }; card vs "
+                  f"CPU from the card's state at block {start} over {LIVE_CPU_BLOCKS} "
+                  f"blocks: error RMS {rms:.3e} (tol {LIVE_TOL_RMS:g}), max "
+                  f"{np.abs(diff).max():.3e}, relative to the CPU's RMS "
+                  f"{rms / max(ref_rms, 1e-30):.3e} (tol {LIVE_TOL_RMS:g}); the CPU's RMS "
+                  f"{ref_rms:.3e} (at least {LIVE_MIN_RMS:g}), peak {np.abs(ycpu).max():.3e}; "
+                  f"backend {diag['backend_available']}/failed {diag['backend_failed']} "
+                  f"({card})", flush=True)
+            print(f"[13] {name} (a) host ms a block of _process_block by stage, mean of "
+                  f"{LIVE_SPLIT_BLOCKS} more blocks (info, {card}): {split}", flush=True)
+            check(ref_rms >= LIVE_MIN_RMS, f"[13] {name}: the compared blocks are not "
+                  f"live (CPU RMS {ref_rms:.3e})")
+            check(rms <= LIVE_TOL_RMS and rms <= LIVE_TOL_RMS * ref_rms,
+                  f"[13] {name}: card and CPU differ")
+            del p, graphs, engine, state
+
+            # (b) free-run with the threads and the VAD worker
+            kernels.reset_launch_counts()
+            free = _live_threads(card, name, model, loop, LIVE_FREE_RUN_S, False)
+            vad_launches = kernels.launch_counts["vad_lstm_head"]
+            total["vad_lstm_head"] += vad_launches
+            check(vad_launches > 0, f"[13] {name}: the VAD worker launched nothing")
+            check(free["blocks"] > 0, f"[13] {name}: no block processed")
+            # captured at start only: front, back, the suppressor's frame, the VAD
+            check(free["captures"] == (4 if model else 3),
+                  f"[13] {name}: {free['captures']} captures in the free run")
+            print(f"[13] {name} (b) free-run {LIVE_FREE_RUN_S:g} s: {free['blocks']} blocks "
+                  f"({free['blocks'] / LIVE_FREE_RUN_S:.0f} a second), start "
+                  f"{free['start_s']:.3f} s, DSP ms per block {_pcts(free['times'])}; "
+                  f"replays {free['replays']} ({free['replays'] / max(free['blocks'], 1):.2f}"
+                  f" per block, VAD windows included), captures {free['captures']} in "
+                  f"{free['capture_s']:.3f} s; vad_lstm_head launches {vad_launches}; "
+                  f"sink blocks {free['sink']['blocks']} (the output thread free-runs "
+                  f"too) ({card})", flush=True)
+
+            # (c) real time, with a topology change half way
+            paced = _live_threads(card, name, model, loop, LIVE_PACED_S, True,
+                                  change_at=LIVE_PACED_S / 2)
+            d = paced["diag"]
+            check(paced["change_captures"] >= 2,
+                  f"[13] {name}: the topology change captured no graphs")
+            print(f"[13] {name} (c) real time {LIVE_PACED_S:g} s (information): "
+                  f"{paced['blocks']} blocks, input dropped samples "
+                  f"{d['input_dropped_samples']}, backlog drops "
+                  f"{d['input_backlog_recovery_count']} ({d['input_backlog_dropped_samples']}"
+                  f" samples), output underruns {d['output_underrun_total']}, DSP ms per "
+                  f"block {_pcts(paced['times'])}; engine latency "
+                  f"{d['engine_latency_ms']:.2f} ms; topology change (de-esser on) half "
+                  f"way: {paced['change_captures']} graphs captured in "
+                  f"{paced['change_capture_s']:.3f} s (ready {paced['change_wall_s']:.3f} s "
+                  f"after the setter), stall {paced['change_ms']:.2f} ms (the worst DSP "
+                  f"block after it), memory {paced['change_mib']:+.1f} MiB, graph cache "
+                  f"{paced['graphs']} topologies ({card}); {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        t0 = time.perf_counter()
+        report = run_seeded_control_dsp_stress(0x5EED, LIVE_STRESS_ITERATIONS, device=DEVICE)
+        print(f"[13] (d) seeded control storm: {report} ({time.perf_counter() - t0:.1f} s, "
+              f"{card})", flush=True)
+        check(report.processed_blocks >= 120 and report.max_output_abs <= 16.0,
+              "[13] the control storm did not process 120 bounded blocks")
+    finally:
+        os.environ.pop("AUDIOFORGE_ENABLE_DEEPFILTER", None)
+    return dict(total)
+
+
 def timed_phase(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2355,6 +2771,9 @@ def main() -> int:
                                                     phase7_dfn_graph_vs_eager(card)))
     timed_phase("[11] offline chain", phase11_offline_chain, card)
     timed_phase("[12] simulators", phase12_simulators, card)
+    live = timed_phase("[13] live engine", phase13_live_engine, card)
+    for name, k in live.items():
+        counts[name] = counts.get(name, 0) + k
     print(f"all phases: {time.perf_counter() - t0:.1f} s wall-clock", flush=True)
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
               "launches": counts[name], **res.rows[name]}
