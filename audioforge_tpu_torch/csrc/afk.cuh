@@ -15,6 +15,12 @@
 #else
 #include <cmath>
 #define AFK_HD inline
+// The host build's stand-in for CUDA's 16-byte vector, for AFK_HD steps that
+// produce a kernel's float4 store.
+struct float4 {
+    float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 #endif
 
 #define AFK_API extern "C" __attribute__((visibility("default")))
@@ -25,6 +31,15 @@ constexpr int AFK_THREADS = 64;
 
 AFK_HD int afk_imax(int a, int b) { return a > b ? a : b; }
 AFK_HD int afk_imin(int a, int b) { return a < b ? a : b; }
+
+// p[0 .. 3]: one 16-byte load on the card (p 16-byte aligned), four on the host.
+AFK_HD float4 afk_load4(const float* p) {
+#ifdef __CUDA_ARCH__
+    return *reinterpret_cast<const float4*>(p);
+#else
+    return make_float4(p[0], p[1], p[2], p[3]);
+#endif
+}
 
 // jnp.clip(v, lo, hi) == minimum(maximum(v, lo), hi)
 AFK_HD float afk_clip(float v, float lo, float hi) {

@@ -12,12 +12,25 @@
 // basis (258 x 256 x 4 = 264 KB) does not fit a block's 227 KB of shared
 // memory, so the projection stays a GEMM.
 //
-// Bound: bytes, about 11 KB a stream (the block, the history and the kept
-// window read once; history, window and frames written once), ~11 MB at
-// fleet 1024. Design: 8 streams a block; the block's rows, histories and kept
-// windows are staged in shared memory with afk_tile_copy; the taps live in
-// __constant__ memory; every step is feed-forward, so all 256 threads take
-// the decimation and then the window and frame writes, coalesced.
+// Bound: bytes, 10,224 B a stream (the block, the history and the kept 416
+// samples of the window read once; history, window and frames written once),
+// 10.5 MB at fleet 1024.
+//
+// Design: one block of 160 threads a stream (1,024 blocks of five warps at
+// fleet 1024), so an SM holds several streams' blocks at once and one
+// block's loads overlap another's stores; the grid is the streams, so no
+// block waits for another stream. Every thread issues its loads before it
+// uses any: at most one 16-byte piece of the block, one of the kept window
+// (which goes straight on to window_out from the register) and one 8-byte
+// piece of the history. Thread o computes decimated sample o (the taps in
+// __constant__ memory, a warp-uniform read that broadcasts; the ext row at
+// stride 3 words, no bank conflict), so no divide or modulo per element.
+// Then every store is 16 bytes: the window's 40 new quads and the frames'
+// 256 quads, each frame quad one aligned shared read times the pre-gain
+// (one read a thread, before the loads), but for frame 3's last 16 quads,
+// which the reflect index builds from four words. Timed on the card with
+// compare_kernels.py (PERF.md), two streams a block, 128 threads, cp.async
+// loads and 4-byte stores were no faster.
 #include "afk.cuh"
 
 constexpr int VF_BLOCK = 480;   // 48 kHz samples in
@@ -27,13 +40,13 @@ constexpr int VF_OUT = VF_BLOCK / 3;  // 160 16 kHz samples out
 constexpr int VF_WIN = 576;           // Silero's input: 64 context + 512
 constexpr int VF_KEEP = VF_WIN - VF_OUT;
 constexpr int VF_FRAMES = 4, VF_FRAME = 256, VF_HOP = 128;
-constexpr int VF_STREAMS = 8;         // streams a thread block
-constexpr int VF_THREADS = 256;
-// ext (history then block) sits at offset VF_EXT0 of its tile row, so the
-// block starts 16-byte aligned (VF_EXT0 + VF_HIST = 32)
+constexpr int VF_THREADS = VF_OUT;   // one a decimated sample
+// ext (history then block) sits at offset VF_EXT0 of its row, so the block
+// starts 16-byte aligned (VF_EXT0 + VF_HIST = 32) and the history 8-byte
 constexpr int VF_EXT0 = 2;
-constexpr int VF_EXT_STRIDE = 516;    // afk_tile_stride(512)
-constexpr int VF_WIN_STRIDE = 580;    // afk_tile_stride(576)
+constexpr int VF_EXT_LEN = VF_EXT0 + VF_HIST + VF_BLOCK;
+constexpr int VF_QUADS = VF_FRAMES * VF_FRAME / 4;   // 256 frame quads a stream
+constexpr int VF_NEW_QUADS = VF_OUT / 4;             // 40 quads of new window samples
 
 // decimate3_taps() (ops/resample.py): the flipped 31-tap windowed sinc, f32
 #define VF_TAP_VALUES                                                           \
@@ -61,6 +74,7 @@ __constant__ float vf_taps_dev[VF_TAPS] = {VF_TAP_VALUES};
 // Decimated sample o of ext = history (30) then block (480).
 AFK_HD float vf_decimate(const float* ext, int o) {
     float acc = 0.0f;
+#pragma unroll
     for (int t = 0; t < VF_TAPS; ++t) acc += ext[3 * o + t] * VF_TAP(t);
     return acc;
 }
@@ -69,9 +83,16 @@ AFK_HD float vf_decimate(const float* ext, int o) {
 // (x[:, -2:-2-64:-1]: the edge sample is not repeated).
 AFK_HD int vf_pad_index(int i) { return i < VF_WIN ? i : 2 * VF_WIN - 2 - i; }
 
-// Element n of frame f, scaled by the pre-gain.
-AFK_HD float vf_frame_value(const float* win, int f, int n, float gain) {
-    return win[vf_pad_index(f * VF_HOP + n)] * gain;
+// Quad q (elements 4q .. 4q+3) of the stream's frames [4, 256] from the new
+// window, times the pre-gain. A quad lies wholly inside the window (one
+// aligned 16-byte read) or wholly in the reflected pad (frame 3, q >= 240).
+AFK_HD float4 vf_frame_quad(const float* win, int q, float gain) {
+    const int i0 = (q / (VF_FRAME / 4)) * VF_HOP + 4 * (q % (VF_FRAME / 4));
+    const float4 v = i0 < VF_WIN ? afk_load4(win + i0)
+                                 : make_float4(win[vf_pad_index(i0)], win[vf_pad_index(i0 + 1)],
+                                               win[vf_pad_index(i0 + 2)],
+                                               win[vf_pad_index(i0 + 3)]);
+    return make_float4(v.x * gain, v.y * gain, v.z * gain, v.w * gain);
 }
 
 AFK_API float afk_vad_front_tap(int t) { return vf_taps_host[t]; }
@@ -81,47 +102,44 @@ __global__ void __launch_bounds__(VF_THREADS)
 vad_front_kernel(const float* __restrict__ x, const float* __restrict__ hist,
                  const float* __restrict__ window, const float* __restrict__ pre_gain,
                  float* __restrict__ hist_out, float* __restrict__ window_out,
-                 float* __restrict__ frames, int N) {
-    __shared__ __align__(16) float ext[VF_STREAMS * VF_EXT_STRIDE];
-    __shared__ __align__(16) float win[VF_STREAMS * VF_WIN_STRIDE];
-    const int s0 = blockIdx.x * VF_STREAMS;
-    const int rows = afk_imin(VF_STREAMS, N - s0);
-    afk_tile_copy(ext + VF_EXT0 + VF_HIST, VF_EXT_STRIDE, x + (long long)s0 * VF_BLOCK, rows,
-                  VF_BLOCK, 0, VF_BLOCK);
-    afk_tile_copy(ext + VF_EXT0, VF_EXT_STRIDE, hist + (long long)s0 * VF_HIST, rows, VF_HIST,
-                  0, VF_HIST);
-    afk_tile_copy(win, VF_WIN_STRIDE, window + (long long)s0 * VF_WIN, rows, VF_WIN, VF_OUT,
-                  VF_KEEP);
-    afk_tile_wait();
-    for (int i = threadIdx.x; i < rows * VF_OUT; i += blockDim.x) {
-        const int s = i / VF_OUT, o = i - s * VF_OUT;
-        win[s * VF_WIN_STRIDE + VF_KEEP + o] = vf_decimate(ext + s * VF_EXT_STRIDE + VF_EXT0, o);
-    }
-    for (int i = threadIdx.x; i < rows * VF_HIST; i += blockDim.x) {
-        const int s = i / VF_HIST, j = i - s * VF_HIST;
-        hist_out[(long long)s0 * VF_HIST + i] =
-            ext[s * VF_EXT_STRIDE + VF_EXT0 + VF_BLOCK + j];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * VF_WIN; i += blockDim.x) {
-        const int s = i / VF_WIN, j = i - s * VF_WIN;
-        window_out[(long long)s0 * VF_WIN + i] = win[s * VF_WIN_STRIDE + j];
-    }
+                 float* __restrict__ frames) {
+    __shared__ __align__(16) float ext[VF_EXT_LEN];
+    __shared__ __align__(16) float win[VF_WIN];
+    const int t = threadIdx.x;
+    const long long n = blockIdx.x;
+    float4* wo = reinterpret_cast<float4*>(window_out + n * VF_WIN);
     const float gain = *pre_gain;
-    constexpr int per_stream = VF_FRAMES * VF_FRAME;
-    for (int i = threadIdx.x; i < rows * per_stream; i += blockDim.x) {
-        const int s = i / per_stream, k = i - s * per_stream;
-        frames[(long long)s0 * per_stream + i] =
-            vf_frame_value(win + s * VF_WIN_STRIDE, k / VF_FRAME, k % VF_FRAME, gain);
+    float4 xv, kv;
+    float2 hv;
+    if (t < VF_BLOCK / 4) xv = reinterpret_cast<const float4*>(x + n * VF_BLOCK)[t];
+    if (t < VF_KEEP / 4) kv = reinterpret_cast<const float4*>(window + n * VF_WIN + VF_OUT)[t];
+    if (t < VF_HIST / 2) hv = reinterpret_cast<const float2*>(hist + n * VF_HIST)[t];
+    if (t < VF_BLOCK / 4) *reinterpret_cast<float4*>(ext + VF_EXT0 + VF_HIST + 4 * t) = xv;
+    if (t < VF_KEEP / 4) {
+        *reinterpret_cast<float4*>(win + 4 * t) = kv;
+        wo[t] = kv;
+    }
+    if (t < VF_HIST / 2) *reinterpret_cast<float2*>(ext + VF_EXT0 + 2 * t) = hv;
+    __syncthreads();
+    win[VF_KEEP + t] = vf_decimate(ext + VF_EXT0, t);
+    if (t < VF_HIST / 2)
+        reinterpret_cast<float2*>(hist_out + n * VF_HIST)[t] =
+            *reinterpret_cast<const float2*>(ext + VF_EXT0 + VF_BLOCK + 2 * t);
+    __syncthreads();
+    float4* fo = reinterpret_cast<float4*>(frames + n * VF_FRAMES * VF_FRAME);
+    for (int i = t; i < VF_QUADS + VF_NEW_QUADS; i += VF_THREADS) {
+        if (i < VF_QUADS)
+            fo[i] = vf_frame_quad(win, i, gain);
+        else
+            wo[VF_KEEP / 4 + i - VF_QUADS] = afk_load4(win + VF_KEEP + 4 * (i - VF_QUADS));
     }
 }
 
 AFK_API int afk_vad_front(const float* x, const float* hist, const float* window,
                           const float* pre_gain, float* hist_out, float* window_out,
                           float* frames, int N, void* stream) {
-    const int blocks = (N + VF_STREAMS - 1) / VF_STREAMS;
-    vad_front_kernel<<<blocks, VF_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, hist, window, pre_gain, hist_out, window_out, frames, N);
+    vad_front_kernel<<<N, VF_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, hist, window, pre_gain, hist_out, window_out, frames);
     return static_cast<int>(cudaGetLastError());
 }
 #endif

@@ -287,6 +287,9 @@ def _vad_front_launch(x, hist, window, pre_gain):
     kernels.check_tensor("vad_front window", window, torch.float32,
                          (n, MODEL_INPUT_SIZE), dev)
     kernels.check_tensor("vad_front pre_gain", pre_gain, torch.float32, (), dev)
+    kernels.check_aligned("vad_front x", x, 16)
+    kernels.check_aligned("vad_front hist", hist, 8)
+    kernels.check_aligned("vad_front window", window, 16)
     hist_out = torch.empty_like(hist)
     window_out = torch.empty_like(window)
     frames = torch.empty((n * _N_FRAMES, _STFT_N), dtype=torch.float32, device=dev)

@@ -25,7 +25,8 @@ a non-zero exit when it fails, and each followed by its wall-clock time:
    the quarter of the streams that carry a low thump; limiter_gain_scan on
    lookahead-limiter- and true-peak-limiter-shaped inputs; the four kernels
    of the model stages (vad_front, vad_lstm_head, dfn_features,
-   dfn_spec_synth, the last also with the post filter on), with the time of
+   dfn_spec_synth, the last also with the post filter on; vad_front and
+   dfn_features also at 1023 streams and at one), with the time of
    ``torch._VF.lstm_cell`` beside vad_lstm_head; then, as information, the time per call of both limiter stages and of the three
    block-level torch stages that have no kernel yet (limiter window max,
    true-peak polyphase FIR, hum oscillator bank), the first two with their
@@ -1051,13 +1052,20 @@ def model_kernel_inputs():
     return front, head, features, synth
 
 
+def _rows(args, m: int) -> tuple:
+    """The first ``m`` streams of a kernel's arguments (0-d controls as
+    they are)."""
+    return tuple(a[:m] if a.dim() else a for a in args)
+
+
 def _tuple_err(a, b) -> float:
     return max((u.double() - v.double()).abs().max().item() for u, v in zip(a, b))
 
 
 def phase2_models(res: Results) -> None:
     """The four kernels of the model stages against their plain twins at the
-    serving shapes (fleet 1024): vad_front, vad_lstm_head (and beside it
+    serving shapes (fleet 1024; vad_front and dfn_features also at 1023 and
+    one stream): vad_front, vad_lstm_head (and beside it
     ``torch._VF.lstm_cell``, the one PyTorch call of an LSTM cell, GEMMs
     included), dfn_features and dfn_spec_synth (also with the post filter
     on)."""
@@ -1065,15 +1073,19 @@ def phase2_models(res: Results) -> None:
 
     front, head, features, synth = model_kernel_inputs()
     n = FLEET
-    err = _tuple_err(silero.vad_front(*front), silero.vad_front_plain(*front))
-    # bytes: the block, history and the kept 416 samples of the window read;
-    # history, window and frames written; 160 x 31 multiply-adds and 1,024
-    # pre-gain products per stream
-    res.report("vad_front", err, 1e-5, kernel_times(lambda: silero.vad_front(*front)),
-               cuda_ms(lambda: silero.vad_front_plain(*front), 20),
-               f"[{n}, {BLOCK}] -> frames [{4 * n}, 256]",
-               4 * n * (BLOCK + 30 + 416 + 30 + 576 + 1024),
-               f32_ops=n * (2 * 160 * 31 + 1024))
+    # fleet 1024 (the headline), 1023 (a last block that is not whole) and one
+    # stream; every slice is a row prefix, so contiguous and aligned
+    for m in (n, n - 1, 1):
+        args = _rows(front, m)
+        err = _tuple_err(silero.vad_front(*args), silero.vad_front_plain(*args))
+        # bytes: the block, history and the kept 416 samples of the window
+        # read; history, window and frames written; 160 x 31 multiply-adds and
+        # 1,024 pre-gain products per stream
+        res.report("vad_front", err, 1e-5, kernel_times(lambda: silero.vad_front(*args)),
+                   cuda_ms(lambda: silero.vad_front_plain(*args), 20),
+                   f"[{m}, {BLOCK}] -> frames [{4 * m}, 256]",
+                   4 * m * (BLOCK + 30 + 416 + 30 + 576 + 1024),
+                   f32_ops=m * (2 * 160 * 31 + 1024))
 
     out_k, out_p = silero.vad_lstm_head(*head), silero.vad_lstm_head_plain(*head)
     flags = int((out_k[2] != out_p[2]).sum() + (out_k[4] != out_p[4]).sum())
@@ -1096,15 +1108,17 @@ def phase2_models(res: Results) -> None:
     print(f"[2] vad_lstm_head: library torch._VF.lstm_cell (its two GEMMs included, no "
           f"head, EMA or calibration) {library_ms:.4f} ms on the card ({res.card})", flush=True)
 
-    err = _tuple_err(dfn3.dfn_features(*features), dfn3.dfn_features_plain(*features))
-    # bytes: the spectrum and both norms read, features and norms written;
-    # per bin the power (3), per band a log10 (~20), per low bin a sqrt and
-    # an rsqrt (~10) and the EMAs
-    res.report("dfn_features", err, 1e-3, kernel_times(lambda: dfn3.dfn_features(*features)),
-               cuda_ms(lambda: dfn3.dfn_features_plain(*features), 20),
-               f"[{n}, 481, 2] -> [{n}, 32] + [{n}, 2, 96]",
-               4 * n * (962 + 32 + 96 + 32 + 192 + 32 + 96),
-               f32_ops=n * (3 * 481 + 32 * 26 + 96 * 16))
+    for m in (n, n - 1, 1):
+        args = _rows(features, m)
+        err = _tuple_err(dfn3.dfn_features(*args), dfn3.dfn_features_plain(*args))
+        # bytes: the spectrum and both norms read, features and norms written;
+        # per bin the power (3), per band a log10 (~20), per low bin a sqrt
+        # and an rsqrt (~10) and the EMAs
+        res.report("dfn_features", err, 1e-3, kernel_times(lambda: dfn3.dfn_features(*args)),
+                   cuda_ms(lambda: dfn3.dfn_features_plain(*args), 20),
+                   f"[{m}, 481, 2] -> [{m}, 32] + [{m}, 2, 96]",
+                   4 * m * (962 + 32 + 96 + 32 + 192 + 32 + 96),
+                   f32_ops=m * (3 * 481 + 32 * 26 + 96 * 16))
 
     for beta in (0.0, 0.02):
         args = (*synth[:5], torch.tensor(beta, device=DEVICE))
@@ -1170,6 +1184,8 @@ def timed_calls():
     yield "vad_front", lambda: silero.vad_front(*front), 20, 1
     yield "vad_lstm_head", lambda: silero.vad_lstm_head(*head), 20, 1
     yield "dfn_features", lambda: dfn3.dfn_features(*features), 20, 1
+    one = _rows(features, 1)  # the live engine's DeepFilterNet3 frame
+    yield "dfn_features one stream", lambda: dfn3.dfn_features(*one), 20, 1
     yield "dfn_spec_synth", lambda: dfn3.dfn_spec_synth(*synth), 20, 1
 
 

@@ -86,22 +86,30 @@ RUNNER = r"""
 #include "dfn_features.cu"
 #include "dfn_synth.cu"
 
-// vad_front per stream: the ext row and the window as the kernel stages
-// them, the decimated samples into the window, then the writes.
+// vad_front per stream, as its block runs it: the ext row and the kept
+// window staged, thread o's decimated sample, the history, then the frames'
+// quads and the window's quads.
 extern "C" int host_vad_front(const float* x, const float* hist, const float* window,
                               float gain, float* hist_out, float* window_out,
                               float* frames, int N) {
     for (int n = 0; n < N; ++n) {
-        float ext[VF_HIST + VF_BLOCK], win[VF_WIN];
-        std::copy(hist + n * VF_HIST, hist + (n + 1) * VF_HIST, ext);
-        std::copy(x + n * VF_BLOCK, x + (n + 1) * VF_BLOCK, ext + VF_HIST);
+        float ext[VF_EXT_LEN], win[VF_WIN];
+        std::copy(hist + n * VF_HIST, hist + (n + 1) * VF_HIST, ext + VF_EXT0);
+        std::copy(x + n * VF_BLOCK, x + (n + 1) * VF_BLOCK, ext + VF_EXT0 + VF_HIST);
         std::copy(window + n * VF_WIN + VF_OUT, window + (n + 1) * VF_WIN, win);
-        for (int o = 0; o < VF_OUT; ++o) win[VF_KEEP + o] = vf_decimate(ext, o);
-        std::copy(ext + VF_BLOCK, ext + VF_BLOCK + VF_HIST, hist_out + n * VF_HIST);
-        std::copy(win, win + VF_WIN, window_out + n * VF_WIN);
-        for (int f = 0; f < VF_FRAMES; ++f)
-            for (int j = 0; j < VF_FRAME; ++j)
-                frames[(n * VF_FRAMES + f) * VF_FRAME + j] = vf_frame_value(win, f, j, gain);
+        for (int o = 0; o < VF_OUT; ++o) win[VF_KEEP + o] = vf_decimate(ext + VF_EXT0, o);
+        std::copy(ext + VF_EXT0 + VF_BLOCK, ext + VF_EXT0 + VF_BLOCK + VF_HIST,
+                  hist_out + n * VF_HIST);
+        for (int q = 0; q < VF_QUADS; ++q) {
+            const float4 v = vf_frame_quad(win, q, gain);
+            float* out = frames + n * VF_FRAMES * VF_FRAME + 4 * q;
+            out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+        }
+        for (int q = 0; q < VF_WIN / 4; ++q) {
+            const float4 v = afk_load4(win + 4 * q);
+            float* out = window_out + n * VF_WIN + 4 * q;
+            out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+        }
     }
     return 0;
 }
@@ -141,14 +149,15 @@ extern "C" int host_vad_lstm_head(const float* gates, const float* lstm, const f
     return 0;
 }
 
-// dfn_features per stream: the power row and the low bins in bin order,
-// then band b as lane b sums it.
+// dfn_features per stream, as its block runs it: the power row and the low
+// bins, part w of band b as lane b of warp w sums it, then the parts added
+// in warp order by lane b of warp 0.
 extern "C" int host_dfn_features(const float* spec, const float* erb_norm,
                                  const float* unit_norm, const int* offsets,
                                  float* feat_erb, float* feat_spec, float* erb_norm_out,
                                  float* unit_norm_out, int N, float alpha, float one_minus) {
     for (int n = 0; n < N; ++n) {
-        float power[DFF_FREQ];
+        float power[DFF_FREQ], part[DFF_PARTS][DFF_ERB];
         for (int k = 0; k < DFF_FREQ; ++k) {
             const float re = spec[(n * DFF_FREQ + k) * 2], im = spec[(n * DFF_FREQ + k) * 2 + 1];
             power[k] = dff_power(re, im);
@@ -157,9 +166,15 @@ extern "C" int host_dfn_features(const float* spec, const float* erb_norm,
                             unit_norm_out + n * DFF_DF + k, feat_spec + n * 2 * DFF_DF + k,
                             feat_spec + n * 2 * DFF_DF + DFF_DF + k);
         }
-        for (int b = 0; b < DFF_ERB; ++b)
-            dff_band(power, offsets[b], offsets[b + 1], erb_norm[n * DFF_ERB + b], alpha,
+        for (int w = 0; w < DFF_PARTS; ++w)
+            for (int b = 0; b < DFF_ERB; ++b)
+                part[w][b] = dff_band_part(power, offsets[b], offsets[b + 1], w);
+        for (int b = 0; b < DFF_ERB; ++b) {
+            float sum = part[0][b];
+            for (int w = 1; w < DFF_PARTS; ++w) sum += part[w][b];
+            dff_band(sum, offsets[b], offsets[b + 1], erb_norm[n * DFF_ERB + b], alpha,
                      one_minus, erb_norm_out + n * DFF_ERB + b, feat_erb + n * DFF_ERB + b);
+        }
     }
     return 0;
 }
@@ -1259,6 +1274,46 @@ def test_dfn_features_host_build_matches_plain(host_lib, level):
     np.testing.assert_allclose(got["erb"], en.numpy(), rtol=1e-6, atol=1e-4)
     np.testing.assert_allclose(got["unit"], un.numpy(), rtol=1e-6)
     np.testing.assert_allclose(got["feat_spec"], fs.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_dfn_features_host_build_band_split(host_lib):
+    """The band sums as the kernel splits them over its warps, on the bands
+    the split reorders most and a band with nothing in it: stream 0 carries
+    power only in the 67-bin top band (levels over six decades, so the
+    order of its 17-term parts shows), stream 1 has band 20 (bins 80-92)
+    and every band below 4 zero, stream 2 is zero everywhere. The zero
+    bands read the floor, 10 log10(1e-10) = -100 dB; feat_erb 1e-4, norms 1e-6 relative (dB of a band sum in another order,
+    over 40)."""
+    rng = np.random.default_rng(94)
+    offsets = tdfn._consts(torch.device("cpu"))["erb_offsets"].numpy()
+    top = slice(offsets[31], offsets[32])
+    assert offsets[32] - offsets[31] == 67
+    spec = np.zeros((3, 481, 2), np.float32)
+    spec[0, top] = (10.0 ** rng.uniform(-3, 3, (67, 1))
+                    * rng.standard_normal((67, 2))).astype(np.float32)
+    spec[1] = rng.standard_normal((481, 2)).astype(np.float32)
+    spec[1, offsets[20]:offsets[21]] = 0.0
+    spec[1, :offsets[4]] = 0.0
+    erb_norm = rng.uniform(-90, -20, (3, 32)).astype(np.float32)
+    unit_norm = rng.uniform(1e-4, 1.0, (3, 96)).astype(np.float32)
+    got = dict(feat_erb=np.empty_like(erb_norm), feat_spec=np.empty((3, 2, 96), np.float32),
+               erb=np.empty_like(erb_norm), unit=np.empty_like(unit_norm))
+    assert host_lib.host_dfn_features(
+        _ptr(spec), _ptr(erb_norm), _ptr(unit_norm), _ptr(offsets), _ptr(got["feat_erb"]),
+        _ptr(got["feat_spec"]), _ptr(got["erb"]), _ptr(got["unit"]), 3, tdfn._NORM_ALPHA,
+        1.0 - tdfn._NORM_ALPHA) == 0
+    fe, fs, en, un = tdfn.dfn_features_plain(torch.as_tensor(spec), torch.as_tensor(erb_norm),
+                                             torch.as_tensor(unit_norm))
+    np.testing.assert_allclose(got["feat_erb"], fe.numpy(), atol=1e-4)
+    np.testing.assert_allclose(got["erb"], en.numpy(), rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(got["unit"], un.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(got["feat_spec"], fs.numpy(), rtol=1e-5, atol=1e-5)
+    # a band's dB from its feature: feat = alpha (db - norm_in) / 40; the
+    # zero bands sit at the floor, the top band of stream 0 well above it
+    db = 40.0 * got["feat_erb"].astype(np.float64) / tdfn._NORM_ALPHA + erb_norm
+    zero = [(0, b) for b in range(31)] + [(1, 20), (1, 0), (1, 3)] + [(2, b) for b in range(32)]
+    np.testing.assert_allclose([db[n, b] for n, b in zero], -100.0, atol=1e-3)
+    assert db[0, 31] > 0.0
 
 
 @pytest.mark.parametrize("atten,beta", [(30.0, 0.0), (6.0, 0.03), (100.0, 0.05)])
