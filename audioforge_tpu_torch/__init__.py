@@ -21,6 +21,10 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
+# the reference package root's flag for its optional native core; the
+# compute core here is this package, so it is always available
+CORE_AVAILABLE = True
+
 from .runtime.processor import (  # noqa: E402 — after the backend flags
     AudioProcessor,
     list_input_devices,
@@ -29,5 +33,5 @@ from .runtime.processor import (  # noqa: E402 — after the backend flags
     register_virtual_output,
 )
 
-__all__ = ["AudioProcessor", "list_input_devices", "list_output_devices",
+__all__ = ["CORE_AVAILABLE", "AudioProcessor", "list_input_devices", "list_output_devices",
            "register_virtual_input", "register_virtual_output"]

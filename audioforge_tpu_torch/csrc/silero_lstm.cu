@@ -11,16 +11,23 @@
 // 1, the calibrated probability and whether it is available (warm).
 //
 // Bound: bytes, ~3.6 KB a stream (gate pre-activations 2 KB, c0 0.5 KB, the
-// new h and c 1 KB), ~3.7 MB at fleet 1024. Design: one warp a stream, four
-// hidden units a lane read as float4 (coalesced), the head's dot product a
-// warp butterfly, lane 0 the stream's scalar tail. Built with -fmad=false:
-// the probability meets the gate's thresholds, so it rounds as the plain
-// twin's elementwise ops do.
+// new h and c 1 KB), ~3.7 MB at fleet 1024. Design: one block of 128 threads
+// a stream, so the grid is the streams and at one stream (the live engine's
+// VAD window) no block waits for another stream. Thread u owns hidden unit u
+// and issues every load before it uses any (coalesced words): its four gate
+// pre-activations, the eight biases, c0 and the head weight, and thread 0 the
+// stream's scalars (EMA, blocks seen, smoothing, head bias). Its h1 and c1 go
+// out as soon as they are computed. The head's dot product is a warp
+// butterfly on each of the four warps and the warps' parts added in warp
+// order by thread 0, which then runs the scalar tail while the other warps'
+// stores drain. Timed on the card with compare_kernels.py (PERF.md): one warp
+// a stream with four units a lane, and two or four streams a block, were no
+// faster. Built with -fmad=false: the probability meets the gate's
+// thresholds, so it rounds as the plain twin's elementwise ops do.
 #include "afk.cuh"
 
-constexpr int VL_HIDDEN = 128;
-constexpr int VL_UNITS = 4;           // hidden units a lane
-constexpr int VL_WARPS = 8;           // streams a thread block
+constexpr int VL_HIDDEN = 128;                // threads a stream: one a hidden unit
+constexpr int VL_WARPS = VL_HIDDEN / 32;       // parts of the head's dot product
 constexpr float VL_CAL_A = 0.6922877f;  // Platt calibration (silero.py)
 constexpr float VL_CAL_B = 0.08612386f;
 
@@ -76,52 +83,43 @@ AFK_HD void vl_finish(float dot, float head_b, float smoothing, float smoothed_i
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(VL_WARPS * 32)
+__global__ void __launch_bounds__(VL_HIDDEN)
 vad_lstm_head_kernel(const float* __restrict__ gates, const float* __restrict__ lstm,
                      const float* __restrict__ bi, const float* __restrict__ bh,
                      const float* __restrict__ head_w, const float* __restrict__ head_b,
                      const float* __restrict__ smoothed, const int* __restrict__ seen,
                      const float* __restrict__ smoothing, float* __restrict__ lstm_out,
                      float* __restrict__ smoothed_out, int* __restrict__ seen_out,
-                     float* __restrict__ prob, bool* __restrict__ avail, int N,
-                     int warmup_blocks) {
-    const int lane = threadIdx.x & 31;
-    const int n = blockIdx.x * VL_WARPS + (threadIdx.x >> 5);
-    if (n >= N) return;
-    const int u = VL_UNITS * lane;
-    const float* g = gates + (long long)n * 4 * VL_HIDDEN;
-    const float4 gi = *reinterpret_cast<const float4*>(g + u);
-    const float4 gf = *reinterpret_cast<const float4*>(g + VL_HIDDEN + u);
-    const float4 gg = *reinterpret_cast<const float4*>(g + 2 * VL_HIDDEN + u);
-    const float4 go = *reinterpret_cast<const float4*>(g + 3 * VL_HIDDEN + u);
-    const float4 bii = *reinterpret_cast<const float4*>(bi + u);
-    const float4 bif = *reinterpret_cast<const float4*>(bi + VL_HIDDEN + u);
-    const float4 big = *reinterpret_cast<const float4*>(bi + 2 * VL_HIDDEN + u);
-    const float4 bio = *reinterpret_cast<const float4*>(bi + 3 * VL_HIDDEN + u);
-    const float4 bhi = *reinterpret_cast<const float4*>(bh + u);
-    const float4 bhf = *reinterpret_cast<const float4*>(bh + VL_HIDDEN + u);
-    const float4 bhg = *reinterpret_cast<const float4*>(bh + 2 * VL_HIDDEN + u);
-    const float4 bho = *reinterpret_cast<const float4*>(bh + 3 * VL_HIDDEN + u);
-    const float* st = lstm + (long long)n * 2 * VL_HIDDEN;
-    const float4 c0 = *reinterpret_cast<const float4*>(st + VL_HIDDEN + u);
-    const float4 hw = *reinterpret_cast<const float4*>(head_w + u);
-    float4 h1, c1;
-    float part = vl_unit(gi.x, gf.x, gg.x, go.x, bii.x, bif.x, big.x, bio.x, bhi.x, bhf.x,
-                         bhg.x, bho.x, c0.x, hw.x, &h1.x, &c1.x);
-    part += vl_unit(gi.y, gf.y, gg.y, go.y, bii.y, bif.y, big.y, bio.y, bhi.y, bhf.y, bhg.y,
-                    bho.y, c0.y, hw.y, &h1.y, &c1.y);
-    part += vl_unit(gi.z, gf.z, gg.z, go.z, bii.z, bif.z, big.z, bio.z, bhi.z, bhf.z, bhg.z,
-                    bho.z, c0.z, hw.z, &h1.z, &c1.z);
-    part += vl_unit(gi.w, gf.w, gg.w, go.w, bii.w, bif.w, big.w, bio.w, bhi.w, bhf.w, bhg.w,
-                    bho.w, c0.w, hw.w, &h1.w, &c1.w);
-    float* so = lstm_out + (long long)n * 2 * VL_HIDDEN;
-    *reinterpret_cast<float4*>(so + u) = h1;
-    *reinterpret_cast<float4*>(so + VL_HIDDEN + u) = c1;
+                     float* __restrict__ prob, bool* __restrict__ avail, int warmup_blocks) {
+    __shared__ float part[VL_WARPS];
+    constexpr int H = VL_HIDDEN;
+    const int u = threadIdx.x, lane = u & 31, w = u >> 5;
+    const long long n = blockIdx.x;
+    const float* g = gates + n * 4 * H;
+    const float gi = g[u], gf = g[H + u], gg = g[2 * H + u], go = g[3 * H + u];
+    const float bii = bi[u], bif = bi[H + u], big = bi[2 * H + u], bio = bi[3 * H + u];
+    const float bhi = bh[u], bhf = bh[H + u], bhg = bh[2 * H + u], bho = bh[3 * H + u];
+    const float c0 = lstm[n * 2 * H + H + u], hw = head_w[u];
+    float sm_in = 0.0f, smooth = 0.0f, hb = 0.0f;
+    int seen_in = 0;
+    if (u == 0) {
+        sm_in = smoothed[n];
+        seen_in = seen[n];
+        smooth = *smoothing;
+        hb = *head_b;
+    }
+    float* so = lstm_out + n * 2 * H;
+    float acc = vl_unit(gi, gf, gg, go, bii, bif, big, bio, bhi, bhf, bhg, bho, c0, hw, so + u,
+                        so + H + u);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (lane == 0)
-        vl_finish(part, *head_b, *smoothing, smoothed[n], seen[n], warmup_blocks,
-                  smoothed_out + n, seen_out + n, prob + n, avail + n);
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) part[w] = acc;
+    __syncthreads();
+    if (u != 0) return;
+#pragma unroll
+    for (int q = 1; q < VL_WARPS; ++q) acc += part[q];
+    vl_finish(acc, hb, smooth, sm_in, seen_in, warmup_blocks, smoothed_out + n, seen_out + n,
+              prob + n, avail + n);
 }
 
 AFK_API int afk_vad_lstm_head(const float* gates, const float* lstm, const float* bi,
@@ -130,10 +128,9 @@ AFK_API int afk_vad_lstm_head(const float* gates, const float* lstm, const float
                               const float* smoothing, float* lstm_out,
                               float* smoothed_out, int* seen_out, float* prob,
                               bool* avail, int N, int warmup_blocks, void* stream) {
-    const int blocks = (N + VL_WARPS - 1) / VL_WARPS;
-    vad_lstm_head_kernel<<<blocks, VL_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+    vad_lstm_head_kernel<<<N, VL_HIDDEN, 0, static_cast<cudaStream_t>(stream)>>>(
         gates, lstm, bi, bh, head_w, head_b, smoothed, seen, smoothing, lstm_out,
-        smoothed_out, seen_out, prob, avail, N, warmup_blocks);
+        smoothed_out, seen_out, prob, avail, warmup_blocks);
     return static_cast<int>(cudaGetLastError());
 }
 #endif

@@ -45,9 +45,12 @@ from ..runtime.replay import BlockReplay, run_take
 
 __all__ = [
     "FRAME_SIZE", "WINDOW_SIZE", "FREQ_SIZE", "NB_ERB", "NB_DF", "DF_ORDER",
-    "CONV_CH", "EMB_HIDDEN", "DF_HIDDEN", "LIN_GROUPS", "ENC_LIN_GROUPS",
+    "DF_BINS", "DF_LOOKAHEAD", "CONV_CH", "CONV_KERNEL_INP", "CONV_KERNEL",
+    "EMB_HIDDEN", "DF_HIDDEN", "EMB_GRU_LAYERS", "ERB_DEC_GRU_LAYERS",
+    "DF_GRU_LAYERS", "LIN_GROUPS", "ENC_LIN_GROUPS",
     "DF_PATHWAY_KT", "DEFAULT_ATTEN_LIM_DB", "DEFAULT_POST_FILTER_BETA",
-    "validate_runtime_config", "erb_widths", "init_params", "weights_from_numpy",
+    "validate_runtime_config", "erb_widths", "init_params", "TORCH_NAME_MAP",
+    "convert_torch_state_dict", "weights_from_numpy",
     "load_weights", "configure_deepfilter_runtime_paths",
     "configured_deepfilter_runtime_paths", "external_paths_allowed",
     "resolve_weight_path", "default_params", "weights_source", "dfn_state_init",
@@ -63,10 +66,16 @@ WINDOW_SIZE = 960           # fft size
 FREQ_SIZE = WINDOW_SIZE // 2 + 1  # 481
 NB_ERB = 32
 NB_DF = 96                  # deep-filtering bins (<= 4.8 kHz)
+DF_BINS = NB_DF             # the reference's name of the same
 DF_ORDER = 5
+DF_LOOKAHEAD = 2            # standard variant; the LL variant uses 0
 CONV_CH = 64
+CONV_KERNEL_INP = (3, 3)    # (time, freq) of the two input convs
+CONV_KERNEL = (1, 3)
 EMB_HIDDEN = 256
 DF_HIDDEN = 256
+EMB_GRU_LAYERS = 1          # encoder bottleneck GRU
+ERB_DEC_GRU_LAYERS = 1      # = emb_num_layers - 1
 DF_GRU_LAYERS = 2
 LIN_GROUPS = 8
 ENC_LIN_GROUPS = 16
@@ -257,6 +266,107 @@ def init_params(seed: int = 0xDF3) -> dict:
 @cache
 def _weight_shapes() -> dict:
     return {k: v.shape for k, v in init_params().items()}
+
+
+def _torch_name_map() -> dict[str, str]:
+    """Official DFN3 torch state-dict name -> the weight key here, the
+    reference's conversion contract (``models/dfn3.py`` there). Every
+    Conv2dNormAct of the official ``deepfilternet3.DfNet`` is an
+    nn.Sequential whose indices depend on the causal time-pad layer (time
+    kernel > 1) and on the separable pointwise conv."""
+    m: dict[str, str] = {}
+
+    def conv(off: str, key: str, padded: bool, separable: bool):
+        i = 1 if padded else 0
+        m[f"{off}.{i}.weight"] = f"{key}.w"
+        if separable:
+            i += 1
+            m[f"{off}.{i}.weight"] = f"{key}.pw"
+        i += 1
+        for name, leaf in (("weight", "g"), ("bias", "b"), ("running_mean", "m"),
+                           ("running_var", "v")):
+            m[f"{off}.{i}.{name}"] = f"{key}.bn.{leaf}"
+
+    def gru(off: str, key: str, layers: int):
+        for layer in range(layers):
+            for name, leaf in (("weight_ih", "wi"), ("weight_hh", "wh"), ("bias_ih", "bi"),
+                               ("bias_hh", "bh")):
+                m[f"{off}.{name}_l{layer}"] = f"{key}.gru_l{layer}.{leaf}"
+
+    conv("enc.erb_conv0", "enc.erb_conv0", True, False)
+    for name in ("erb_conv1", "erb_conv2", "erb_conv3"):
+        conv(f"enc.{name}", f"enc.{name}", False, True)
+    conv("enc.df_conv0", "enc.df_conv0", True, True)
+    conv("enc.df_conv1", "enc.df_conv1", False, True)
+    m["enc.df_fc_emb.0.weight"] = "enc.df_fc_emb.w"
+    m["enc.emb_gru.linear_in.0.weight"] = "enc.emb_gru.lin_in.w"
+    gru("enc.emb_gru.gru", "enc.emb_gru", EMB_GRU_LAYERS)
+    m["enc.emb_gru.linear_out.0.weight"] = "enc.emb_gru.lin_out.w"
+    m["enc.lsnr_fc.0.weight"] = "enc.lsnr.w"
+    m["enc.lsnr_fc.0.bias"] = "enc.lsnr.b"
+
+    m["erb_dec.emb_gru.linear_in.0.weight"] = "erb_dec.emb_gru.lin_in.w"
+    gru("erb_dec.emb_gru.gru", "erb_dec.emb_gru", ERB_DEC_GRU_LAYERS)
+    m["erb_dec.emb_gru.linear_out.0.weight"] = "erb_dec.emb_gru.lin_out.w"
+    for level in (3, 2, 1):
+        conv(f"erb_dec.conv{level}p", f"erb_dec.conv{level}p", False, False)
+        conv(f"erb_dec.convt{level}", f"erb_dec.convt{level}", False, True)
+    conv("erb_dec.conv0p", "erb_dec.conv0p", False, False)
+    conv("erb_dec.conv0_out", "erb_dec.conv0_out", False, False)
+
+    conv("df_dec.df_convp", "df_dec.df_convp", True, True)
+    m["df_dec.df_gru.linear_in.0.weight"] = "df_dec.df_gru.lin_in.w"
+    gru("df_dec.df_gru.gru", "df_dec.df_gru", DF_GRU_LAYERS)
+    m["df_dec.df_out.0.weight"] = "df_dec.df_out.w"
+    return m
+
+
+TORCH_NAME_MAP = _torch_name_map()
+
+# torch ConvTranspose2d stores its weight as [in, out/g, kt, kf]; the weights
+# here store every conv as [out, in/g, kt, kf] in forward-correlation
+# orientation, so a transposed conv's weight is regrouped, transposed within
+# each group and flipped along frequency. Key -> groups (both depthwise).
+_TRANSPOSED_KEYS = {
+    "erb_dec.convt2.w": CONV_CH,
+    "erb_dec.convt1.w": CONV_CH,
+}
+
+
+def _convert_transposed(arr: np.ndarray, groups: int) -> np.ndarray:
+    """[in, out/g, kt, kf] (torch ConvTranspose2d) -> [out, in/g, kt, kf] in
+    forward-correlation orientation."""
+    i_total, og, kh, kw = arr.shape
+    arr = arr.reshape(groups, i_total // groups, og, kh, kw).transpose(0, 2, 1, 3, 4)
+    return arr.reshape(groups * og, i_total // groups, kh, kw)[..., ::-1].copy()
+
+
+def convert_torch_state_dict(state_dict: dict) -> dict:
+    """An official DFN3 torch state dict (tensor name -> array) as the
+    weight archive here (numpy f32), validating keys and shapes; raises
+    ``ValueError`` on a missing or unknown key or a wrong shape."""
+    shapes = _weight_shapes()
+    out: dict[str, np.ndarray] = {}
+    unknown = []
+    for name, value in state_dict.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        key = TORCH_NAME_MAP.get(name)
+        if key is None:
+            unknown.append(name)
+            continue
+        arr = np.asarray(value, np.float32)
+        if key in _TRANSPOSED_KEYS:
+            arr = _convert_transposed(arr, _TRANSPOSED_KEYS[key])
+        out[key] = arr
+    missing = set(shapes) - set(out)
+    if missing or unknown:
+        raise ValueError(f"torch state dict does not match the DFN3 graph: "
+                         f"missing={sorted(missing)} unknown={sorted(unknown)}")
+    for key, shape in shapes.items():
+        if out[key].shape != shape:
+            raise ValueError(f"weight {key!r} shape {out[key].shape} != expected {shape}")
+    return out
 
 
 def weights_from_numpy(arrays: dict, device="cpu") -> dict:

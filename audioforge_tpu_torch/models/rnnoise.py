@@ -38,6 +38,7 @@ from ..runtime.replay import BlockReplay, copy_into, run_take
 __all__ = [
     "FRAME_SIZE", "WINDOW_SIZE", "FREQ_SIZE", "NB_BANDS", "NB_FEATURES",
     "PCM_SCALE", "PCM_MODEL_LIMIT", "LATENCY_SAMPLES", "init_params", "load_weights",
+    "archive_provenance",
     "discover_model_path", "default_params", "weights_source", "rnnoise_state_init",
     "frame_features", "rnnoise_frame", "rnnoise_frames", "soft_clip",
     "frame_replay", "processor_init", "processor_push", "processor_prepare",
@@ -202,6 +203,18 @@ def load_weights(path, device="cpu") -> dict:
         return weights_from_numpy({k: data[k] for k in data.files}, device)
 
 
+def _provenance(arrays) -> str:
+    return (str(np.asarray(arrays["__provenance__"]).item())
+            if "__provenance__" in arrays else "converted")
+
+
+def archive_provenance(path) -> str:
+    """The ``__provenance__`` string of a weight archive (``"trained"`` for
+    the in-repo training runs), else ``"converted"``."""
+    with np.load(path) as data:
+        return _provenance(data)
+
+
 def discover_model_path():
     """``RNNOISE_MODEL_PATH`` first, then ``models/rnnoise.npz`` at the root
     of the checkout. Returns None when neither exists."""
@@ -219,9 +232,7 @@ def _default_weights():
         return weights_from_numpy(init_params(), "cpu"), "seeded"
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
-    source = (str(np.asarray(arrays["__provenance__"]).item())
-              if "__provenance__" in arrays else "converted")
-    return weights_from_numpy(arrays, "cpu"), source
+    return weights_from_numpy(arrays, "cpu"), _provenance(arrays)
 
 
 def default_params(device="cpu") -> dict:

@@ -52,7 +52,7 @@ from ..runtime.replay import BlockReplay, run_take
 __all__ = [
     "SAMPLE_RATE", "WINDOW_SIZE", "CONTEXT_SIZE", "MODEL_INPUT_SIZE",
     "CALIBRATION_A", "CALIBRATION_B", "VAD_IN_PER_BLOCK", "VAD_WARMUP_BLOCKS",
-    "stft_basis_analytic", "calibrate_probability", "init_params",
+    "ONNX_NAME_MAP", "stft_basis_analytic", "calibrate_probability", "init_params",
     "weights_from_numpy", "load_weights", "discover_model_path",
     "default_params", "weights_source", "stft_frames", "silero_infer",
     "vad_front", "vad_front_plain", "vad_gates", "vad_lstm_head",
@@ -77,6 +77,20 @@ _LSTM_HIDDEN = 128
 _ENC_SPEC = ((_N_BINS, 128, 1), (128, 64, 2), (64, 64, 2), (64, 128, 1))
 _N_LAYERS = 2  # state planes: h and c of the single LSTMCell
 _STATE_DIM = _LSTM_HIDDEN
+
+# the conversion contract: weight key -> tensor name in the official Silero
+# checkpoint (its jit/ONNX export's state dict)
+ONNX_NAME_MAP = {
+    "stft_basis": "_model.stft.forward_basis_buffer",
+    **{f"enc{i}_{p}": f"_model.encoder.{i}.reparam_conv.{name}"
+       for i in range(len(_ENC_SPEC)) for p, name in (("w", "weight"), ("b", "bias"))},
+    "lstm_wi": "_model.decoder.rnn.weight_ih",
+    "lstm_wh": "_model.decoder.rnn.weight_hh",
+    "lstm_bi": "_model.decoder.rnn.bias_ih",
+    "lstm_bh": "_model.decoder.rnn.bias_hh",
+    "head_w": "_model.decoder.decoder.2.weight",
+    "head_b": "_model.decoder.decoder.2.bias",
+}
 
 # serving cadence: 160 fresh 16 kHz samples a 480-sample block into the
 # 576-sample window, warm after ceil(576 / 160) = 4 blocks
@@ -346,8 +360,6 @@ def _vad_lstm_head_launch(params, gates, lstm, smoothed, blocks_seen, smoothing,
             ("smoothing", smoothing, torch.float32, ()))
     for name, t, dtype, shape in args:
         kernels.check_tensor(f"vad_lstm_head {name}", t, dtype, shape, dev)
-    for name, t, _, _ in args[:5]:  # read as float4
-        kernels.check_aligned(f"vad_lstm_head {name}", t, 16)
     lstm_out = torch.empty_like(lstm)
     smoothed_out = torch.empty_like(smoothed)
     seen_out = torch.empty_like(blocks_seen)

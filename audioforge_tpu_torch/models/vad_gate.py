@@ -13,7 +13,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["VadGateConfig", "vad_gate_init", "vad_gate_process", "compute_rms_db"]
+__all__ = ["VadGateConfig", "vad_gate_init", "vad_gate_reset", "vad_gate_process",
+           "compute_rms_db"]
 
 NOISE_FLOOR_HISTORY_FRAMES = 250
 NOISE_FLOOR_BIN_COUNT = 61
@@ -59,6 +60,12 @@ def vad_gate_init(config: VadGateConfig, *, n: int, device) -> dict:
         "bins": torch.zeros((n, NOISE_FLOOR_BIN_COUNT), **i32),
         "current_probability": f(0.0),
     }
+
+
+def vad_gate_reset(config: VadGateConfig, state) -> dict:
+    """A fresh controller state of the same streams on the same device."""
+    f = state["noise_floor"]
+    return vad_gate_init(config, n=f.shape[0], device=f.device)
 
 
 def _bin_index(sample_db):

@@ -17,6 +17,12 @@ Unit state (stream axis first)::
     fade_remaining  i32 [N, S]
 
 When ``fade_remaining == 0`` the two lanes are identical by construction.
+
+The reference's ``apply`` (a section as a blocked associative scan in
+double-word f32, which loses precision across block boundaries: ROADMAP F6)
+and ``df2t_step_df32`` (the double-word sample step) have no counterpart:
+they exist because the TPU has no f64, and every section here keeps native
+f64 state.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ __all__ = [
     "MAX_COEFF_CROSSFADE_SAMPLES", "MAX_KERNEL_SECTIONS",
     "crossfade_samples", "design", "magnitude_response_db", "df2t_step",
     "biquad_cascade", "biquad_cascade_plain", "apply_fixed",
-    "unit_init", "unit_schedule", "unit_process",
+    "unit_init", "unit_schedule", "unit_set_immediate", "unit_reset_state",
+    "unit_process",
 ]
 
 BYPASS = 0
@@ -389,6 +396,30 @@ def unit_schedule(state, new_coeffs, fade_samples: int) -> dict:
     total = torch.full_like(state["fade_total"], int(fade_samples))
     return {"coeffs": coeffs, "z": z, "fade_total": total,
             "fade_remaining": total.clone()}
+
+
+def unit_set_immediate(state, new_coeffs) -> dict:
+    """Commit ``new_coeffs`` (broadcastable to ``[N, S, 5]``) to both lanes
+    with no crossfade, keeping the active lane's filter state
+    (`biquad.rs:230-246`)."""
+    coeffs = state["coeffs"]
+    new_c = torch.as_tensor(new_coeffs, dtype=torch.float32,
+                            device=coeffs.device).expand_as(coeffs[:, :, 0])
+    z0 = state["z"][:, :, 0]
+    return {"coeffs": torch.stack([new_c, new_c], dim=2),
+            "z": torch.stack([z0, z0], dim=2),
+            "fade_total": torch.zeros_like(state["fade_total"]),
+            "fade_remaining": torch.zeros_like(state["fade_remaining"])}
+
+
+def unit_reset_state(state) -> dict:
+    """Clear the filter state and commit any pending target
+    (`biquad.rs:341-347`)."""
+    target = state["coeffs"][:, :, 1]
+    return {"coeffs": torch.stack([target, target], dim=2),
+            "z": torch.zeros_like(state["z"]),
+            "fade_total": torch.zeros_like(state["fade_total"]),
+            "fade_remaining": torch.zeros_like(state["fade_remaining"])}
 
 
 def unit_process(state, x):

@@ -5,7 +5,9 @@ recurrence (``make_sample_step``, scanned at ``compressor.py:577``) is the
 hand-written ``compressor_scan`` kernel on the card (``csrc/compressor_scan.cu``)
 and the loop :func:`compressor_scan_plain` on the CPU; the block-cadence
 parts (activity estimate, gated loudness meter, auto makeup) are plain
-PyTorch at block cadence.
+PyTorch at block cadence. The reference's ``make_sample_step`` (the step
+its fused offline scan inlines) has no counterpart: every caller here runs
+the staged kernel.
 
 Per-stream parameters are ``[N]`` f32 tensors (the serving engine stacks
 them); the ``meter.coeffs`` leaf of the state is shared by every stream.
@@ -22,7 +24,7 @@ from .. import kernels
 from . import loudness, util
 
 __all__ = [
-    "CompressorConfig", "compressor_params", "compressor_init",
+    "CompressorConfig", "compressor_params", "compressor_init", "compressor_reset",
     "compressor_scan", "compressor_scan_plain", "compressor_process",
     "SCAN_PARAM_KEYS", "SCAN_STATE_KEYS",
 ]
@@ -114,6 +116,21 @@ def compressor_init(config: CompressorConfig, *, n: int, device) -> dict:
                                          config.block_samples, n=n,
                                          device=device)
     return state
+
+
+def compressor_reset(config: CompressorConfig, state, params) -> dict:
+    """`compressor.rs:786-808`: a fresh state of the same streams on the
+    same device, its release at ``params["base_release_ms"]`` and its
+    smoothed makeup at the manual ``params["makeup_gain_db"]``
+    (`compressor.rs:174`); ``params`` host values or ``[N]`` tensors."""
+    g = state["current_gr_db"]
+    n, dev = g.shape[0], g.device
+    out = compressor_init(config, n=n, device=dev)
+    for key, src in (("current_release_ms", "base_release_ms"),
+                     ("smoothed_makeup_gain", "makeup_gain_db")):
+        out[key] = torch.as_tensor(params[src], dtype=torch.float32,
+                                   device=dev).expand(n).clone()
+    return out
 
 
 def _scan_consts(config: CompressorConfig) -> dict:

@@ -14,7 +14,9 @@ sample by sample in one launch: the hand-written ``deesser_scan`` kernel
 recurrences one lane per band, the per-sample math of every sample spread
 over the block's warps, the dynamic bands as a wavefront) on the card and
 :func:`deesser_scan_plain` on the CPU. Filter and envelope state is f32, as
-in the reference.
+in the reference. The reference's phase pieces of its fused offline scan,
+``detector_filter_block`` and ``make_envelope_step``, have no counterpart:
+every caller here runs the staged kernel.
 
 State (stream axis first)::
 
@@ -36,7 +38,7 @@ from .. import kernels
 from . import biquad, util
 
 __all__ = [
-    "BAND_COUNT", "DeEsserConfig", "deesser_init",
+    "BAND_COUNT", "DeEsserConfig", "deesser_init", "deesser_reset",
     "deesser_process", "deesser_scan", "deesser_scan_plain",
     "dynamic_band_constants", "dynamic_peaking_coeffs", "SCAN_STATE_KEYS",
     "pack_scan_state", "unpack_scan_state",
@@ -179,6 +181,12 @@ def deesser_init(config: DeEsserConfig, *, n: int, device) -> dict:
         "detector_confidence": f(),
         "dyn_z": f(BAND_COUNT, 2),
     }
+
+
+def deesser_reset(config: DeEsserConfig, state) -> dict:
+    """A fresh de-esser state of the same streams on the same device."""
+    e = state["broadband_env"]
+    return deesser_init(config, n=e.shape[0], device=e.device)
 
 
 def _norm(value, start, end):

@@ -4,6 +4,8 @@ Counterpart of ``audioforge_tpu/ops/dft.py``, which wrote the 960-point
 transform as matmuls only to suit the TPU's matrix unit; here it is
 ``torch.fft`` with the same scaling: :func:`rdft` is ``numpy.fft.rfft``
 (unscaled forward) and :func:`irdft` is ``numpy.fft.irfft`` (1/n inverse).
+The reference's ``rdft_auto`` and ``irdft_auto`` (picking the matmul or the
+FFT form by platform) have no counterpart: there is one form here.
 """
 
 from __future__ import annotations

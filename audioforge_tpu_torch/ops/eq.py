@@ -11,6 +11,12 @@ The offline chain's static cascade (:func:`compact_cascade`) drops identity
 sections and keeps the reference's order (the sections its pole test sends
 to the double-word scan, then the rest) in one ``(S, 5)`` array; the split
 is an order here, not a precision.
+
+The reference's precision split has no counterpart, because it is a TPU
+workaround (ROADMAP F2): ``EQ_DF32_BANDS``, ``DF32_SECTIONS``,
+``band_slot_count``, ``layout_sections`` and ``band_slot`` (locating a band in
+its precision group), and ``cascade_apply`` / ``cascade_apply_split`` (the
+fused offline scan's cascade; the offline chain here runs the staged kernel).
 """
 
 from __future__ import annotations
@@ -25,12 +31,14 @@ from . import biquad
 __all__ = [
     "NUM_BANDS", "MAX_PASS_SECTIONS", "DEFAULT_FREQUENCIES", "DEFAULT_Q",
     "EqBandConfig", "default_bands", "validate_band", "band_section_design",
-    "eq_layout", "eq_init", "eq_set_band", "eq_process", "bands_to_sections",
+    "NUM_SECTIONS", "eq_layout", "eq_init", "eq_set_band", "eq_set_bands", "eq_reset",
+    "eq_process", "bands_to_sections",
     "compact_cascade", "magnitude_response_db",
 ]
 
 NUM_BANDS = 10
 MAX_PASS_SECTIONS = 4
+NUM_SECTIONS = NUM_BANDS * MAX_PASS_SECTIONS  # the reference's full layout
 DEFAULT_FREQUENCIES = (
     80.0, 160.0, 320.0, 640.0, 1280.0, 2500.0, 5000.0, 8000.0, 12000.0, 16000.0
 )
@@ -226,6 +234,18 @@ def eq_set_band(state, band_index: int, config: EqBandConfig,
     for k, v in sub.items():
         out[k][:, sec] = v
     return out
+
+
+def eq_set_bands(state, bands, sample_rate: float, layout=None) -> dict:
+    """:func:`eq_set_band` for band 0, 1, ... of ``bands`` in turn."""
+    for i, b in enumerate(bands):
+        state = eq_set_band(state, i, b, sample_rate, layout=layout)
+    return state
+
+
+def eq_reset(state) -> dict:
+    """Clear every section's filter state and commit pending targets."""
+    return biquad.unit_reset_state(state)
 
 
 def eq_process(state, x):

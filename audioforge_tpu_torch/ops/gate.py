@@ -18,7 +18,7 @@ from .. import kernels
 from . import util
 
 __all__ = ["THRESHOLD_ONLY", "VAD_ASSISTED", "VAD_ONLY", "GateConfig",
-           "PARAM_KEYS", "FLOAT_KEYS", "INT_KEYS", "gate_init", "gate_params",
+           "PARAM_KEYS", "FLOAT_KEYS", "INT_KEYS", "gate_init", "gate_reset", "gate_params",
            "gate_process", "gate_process_plain"]
 
 THRESHOLD_ONLY = 0
@@ -94,6 +94,13 @@ def gate_init(*, n: int, device) -> dict:
         "previous_vad_probability": f(0.0), "auto_relax_remaining": i(0),
         "peak_level": f(-1e30),
     }
+
+
+def gate_reset(state) -> dict:
+    """`gate.rs:762-790`: the full state reset (auto-relax timer included),
+    a fresh state of the same streams on the same device."""
+    g = state["current_gain"]
+    return gate_init(n=g.shape[0], device=g.device)
 
 
 def gate_params(config: GateConfig, threshold_db=None, attack_ms=None,

@@ -16,8 +16,8 @@ import torch
 from . import util
 from .scan import limiter_gain_scan, sliding_window_max
 
-__all__ = ["LimiterConfig", "limiter_init", "limiter_params", "limiter_process",
-           "latency_samples"]
+__all__ = ["LimiterConfig", "limiter_init", "limiter_reset", "limiter_params",
+           "limiter_process", "latency_samples"]
 
 MAX_LOOKAHEAD_SAMPLES = 1024
 
@@ -43,6 +43,16 @@ def limiter_init(config: LimiterConfig, *, n: int, device) -> dict:
         "history": torch.zeros((n, config.lookahead_samples), **f32),
         "gain": torch.ones(n, **f32),
         "peak_gr_db": torch.zeros(n, **f32),
+    }
+
+
+def limiter_reset(state) -> dict:
+    """An empty delay line and unity gain, the same shapes on the same
+    device."""
+    return {
+        "history": torch.zeros_like(state["history"]),
+        "gain": torch.ones_like(state["gain"]),
+        "peak_gr_db": torch.zeros_like(state["peak_gr_db"]),
     }
 
 

@@ -33,7 +33,8 @@ from . import biquad
 
 __all__ = [
     "CLEANUP_OFF", "CLEANUP_GENTLE", "CLEANUP_STRONG", "CLEANUP_MODES",
-    "RoutingConfig", "routing_init", "sanitize_and_clamp_input",
+    "CLEANUP_MODE_IDS", "RoutingConfig", "routing_init", "routing_reset",
+    "sanitize_and_clamp_input",
     "sanitize_and_clamp_output", "meter_block_stats", "routing_process",
     "cleanup_scan", "cleanup_scan_plain",
 ]
@@ -41,6 +42,7 @@ __all__ = [
 CLEANUP_OFF = 0
 CLEANUP_GENTLE = 1
 CLEANUP_STRONG = 2
+CLEANUP_MODE_IDS = {CLEANUP_OFF: "off", CLEANUP_GENTLE: "gentle", CLEANUP_STRONG: "strong"}
 CLEANUP_MODES = {"off": CLEANUP_OFF, "gentle": CLEANUP_GENTLE,
                  "strong": CLEANUP_STRONG}
 
@@ -205,6 +207,12 @@ def routing_init(config: RoutingConfig, *, n: int, device) -> dict:
         "selected_hp_hz": f(PREFILTER_HZ),
         "meter_rms_acc": f(0.0),
     }
+
+
+def routing_reset(config: RoutingConfig, state) -> dict:
+    """A fresh routing state of the same streams on the same device."""
+    d = state["dc_x1"]
+    return routing_init(config, n=d.shape[0], device=d.device)
 
 
 def _peak_db(peak):

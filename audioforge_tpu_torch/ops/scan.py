@@ -6,7 +6,11 @@ a hand-written kernel over a shared-memory tile of the block, one lane per
 stream (``csrc/max_affine_scan.cu``).
 
 :func:`max_affine_scan` launches that kernel for a CUDA tensor and runs its
-plain PyTorch twin :func:`max_affine_scan_plain` for a CPU tensor.
+plain PyTorch twin :func:`max_affine_scan_plain` for a CPU tensor. The
+reference's TPU scan machinery has no counterpart here: ``seq_unroll``,
+``blocked_associative_scan``, ``affine_scan_2x2`` and
+``affine_scan_2x2_compensated`` (the double-word form) exist to turn a
+recurrence into parallel work for the TPU's vector units.
 :func:`limiter_gain_scan` is the form both limiters call: the same recurrence
 with the target gain before it and the gain, the clamped output and the
 block's gain statistics after it, one kernel launch on the card

@@ -7,8 +7,7 @@ a non-zero exit when it fails, and each followed by its wall-clock time:
 0. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device is a failure (there is no CPU path);
 1. build: compiles the CUDA kernels under audioforge_tpu_torch/csrc/ and
-   prints ptxas's registers and spills; a spill in any kernel but env_scan
-   fails;
+   prints ptxas's registers and spills; a spill in any kernel fails;
 2. kernels: each kernel against its plain PyTorch twin on the card, at the
    shapes the serving path gives it, with its time on the card (a CUDA
    graph of the wrapper call, replayed), the eager call's and the plain
@@ -25,8 +24,8 @@ a non-zero exit when it fails, and each followed by its wall-clock time:
    the quarter of the streams that carry a low thump; limiter_gain_scan on
    lookahead-limiter- and true-peak-limiter-shaped inputs; the four kernels
    of the model stages (vad_front, vad_lstm_head, dfn_features,
-   dfn_spec_synth, the last also with the post filter on; vad_front and
-   dfn_features also at 1023 streams and at one), with the time of
+   dfn_spec_synth, the last also with the post filter on; vad_front,
+   vad_lstm_head and dfn_features also at 1023 streams and at one), with the time of
    ``torch._VF.lstm_cell`` beside vad_lstm_head; then, as information, the time per call of both limiter stages and of the three
    block-level torch stages that have no kernel yet (limiter window max,
    true-peak polyphase FIR, hum oscillator bank), the first two with their
@@ -97,8 +96,10 @@ a non-zero exit when it fails, and each followed by its wall-clock time:
    a virtual source and sink (no engine error, no capture after the start;
    per-block DSP time, replays per block); (c) 10 s in real time (drops,
    underruns, p99: information) with a topology change half way (its
-   captures, stall and memory); then (d) the seeded control storm of
-   ``runtime/stress_harness.py`` (120 blocks, bounded output).
+   captures, stall and memory); then the VAD worker's window graph alone
+   (its replay on the card, host ms per window: information) and (d) the
+   seeded control storm of ``runtime/stress_harness.py`` (120 blocks,
+   bounded output).
 
 Phase [2] also holds the kernels at the offline path's own shapes (one
 stream of 882 samples at 44.1 kHz, the live EQ's 4800-sample blocks through
@@ -137,8 +138,17 @@ FP64_OPS_PER_S = 34e12      # H100 SXM f64 outside the tensor cores
 FULL_BLOCKS = 60            # hum windows (250 ms) complete at blocks 25 and 50
 ENV_BLOCKS = 50             # env_scan blocks per run (the tool's 50 blocks)
 GATE_BLOCKS = 30            # gate_scan blocks per mode
+ENV_CHECK_BLOCKS = 3        # env_scan blocks per further shape checked
+# env_scan's serial floor: cycles a step on the env chain of its loop. The
+# SASS of env_scan.cu's serial loop (`compare_kernels.py --sass
+# env_scan_kernel`) has two instructions on it a step, two FFMAs side by side
+# and then FMNMX; a chain of this step alone, in registers, takes 13.8 cycles
+# a step on the H100 (PERF.md, env_scan's finding), about 7 a dependent
+# instruction.
+ENV_CHAIN_CYCLES = 14
+ENV_CLOCK_S = 0.5           # seconds of env_scan replays while the SM clock is sampled
 # kernels whose lane state must fit in registers (phase [1] fails on a spill)
-NO_SPILL_KERNELS = ("biquad_cascade_kernel", "deesser_scan_kernel",
+NO_SPILL_KERNELS = ("env_scan_kernel", "biquad_cascade_kernel", "deesser_scan_kernel",
                     "compressor_scan_kernel", "gate_scan_kernel", "cleanup_scan_kernel",
                     "max_affine_scan_kernel", "limiter_gain_scan_kernel",
                     "vad_front_kernel", "vad_lstm_head_kernel", "dfn_features_kernel",
@@ -148,6 +158,7 @@ TIMED_CALLS = 1000          # step() and step_pipelined() calls timed per path: 
 TIMED_SPAN = 50             # blocks of audio queued at a time while timing; step_many's span
 MODEL_TIMED_CALLS = 200     # step() and step_pipelined() calls timed on the model paths [8]-[10]
 MODEL_BLOCKS = 16           # blocks a model path runs before its timing (VAD warm after 4)
+REPLAY_MS = {}              # a path's tag -> its graph's replay alone on the card, ms
 
 
 def fail(msg: str) -> None:
@@ -486,6 +497,17 @@ def env_run(fn, xs, env0):
     return torch.stack(ys), env
 
 
+def env_chain(fn, xs, env0):
+    """``fn`` over the blocks of ``xs``, the envelope carried; the last
+    block's ``(y, env)``. Each block reads its own input and writes its own
+    output, so a block's input comes from device memory, not the L2, as over
+    the tool's 50 blocks."""
+    env = env0
+    for r in range(xs.shape[0]):
+        y, env = fn(xs[r], env)
+    return y, env
+
+
 def max_affine_inputs(T: int = BLOCK):
     """``(v, rho, c, u0)`` as the lookahead limiter gives them, [1024, T]."""
     rng = np.random.default_rng(10)
@@ -573,7 +595,47 @@ def compressor_inputs():
     return out
 
 
+def sm_clock_during(fn, seconds: float) -> float:
+    """The median SM clock in MHz (nvidia-smi, sampled every 20 ms) while
+    ``fn`` runs back to back for ``seconds``; 0 when unreadable."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    mhz = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+    return float(np.median(mhz)) if mhz else 0.0
+
+
+def env_shapes(xs):
+    """``(label, blocks [R, T, B])`` of env_scan's further checks: B = 2047
+    (rows not 16-byte aligned, a last strip of 15 columns) and 1, and T = 960
+    (two of the tool's blocks as one)."""
+    x3 = xs[:ENV_CHECK_BLOCKS]
+    yield "[480, 2047]", x3[:, :, :2047].contiguous()
+    yield "[480, 1]", x3[:, :, :1].contiguous()
+    yield "[960, 2048]", xs[:2 * ENV_CHECK_BLOCKS].reshape(ENV_CHECK_BLOCKS, 2 * BLOCK, -1)
+
+
 def phase2_pr1_kernels(res: Results) -> None:
+    phase2_env(res)
+    phase2_max_affine(res)
+    phase2_limiters(res)
+    phase2_biquad(res)
+    phase2_compressor(res)
+
+
+def phase2_env(res: Results) -> None:
+    """env_scan over the tool's 50 blocks of [480, 2048] with the envelope
+    carried, then over a few blocks of each of :func:`env_shapes`; its time
+    per block over the 50 blocks and over them as 25 blocks of [960, 2048],
+    and its serial floor beside its bytes bound."""
     from audioforge_tpu_torch.ops import envelope
 
     xs, env0 = env_inputs()
@@ -582,16 +644,35 @@ def phase2_pr1_kernels(res: Results) -> None:
     yp, ep = env_run(envelope.env_scan_plain, xs, env0)
     err = max((yk - yp).abs().max().item(), (ek - ep).abs().max().item())
     times = tuple(t / ENV_BLOCKS for t in
-                  kernel_times(lambda: env_run(envelope.env_scan, xs, env0), 3))
-    plain_ms = cuda_ms(lambda: env_run(envelope.env_scan_plain, xs, env0), 1) / ENV_BLOCKS
+                  kernel_times(lambda: env_chain(envelope.env_scan, xs, env0), 3))
     # per element: abs, compare/select, 4 for the one-pole, max, log
-    res.report("env_scan", err, 1e-5, times, plain_ms,
+    res.report("env_scan", err, 1e-5, times,
+               cuda_ms(lambda: envelope.env_scan_plain(xs[0], env0), 1),
                f"[{BLOCK}, {B}] x {ENV_BLOCKS} blocks", 8 * BLOCK * B, f32_ops=8 * BLOCK * B)
-
-    phase2_max_affine(res)
-    phase2_limiters(res)
-    phase2_biquad(res)
-    phase2_compressor(res)
+    for label, xb in env_shapes(xs):
+        e0 = env0[:xb.shape[2]].contiguous()
+        yk, ek = env_run(envelope.env_scan, xb, e0)
+        yp, ep = env_run(envelope.env_scan_plain, xb, e0)
+        err = max((yk - yp).abs().max().item(), (ek - ep).abs().max().item())
+        print(f"[2] env_scan {label} x {xb.shape[0]} blocks: max_abs_err {err:.3e} (tol 1e-5)",
+              flush=True)
+        check(np.isfinite(err) and err <= 1e-5, f"env_scan {label} disagrees with its twin")
+        res.rows["env_scan"]["max_abs_err"] = max(res.rows["env_scan"]["max_abs_err"], err)
+    long_blocks = xs.reshape(ENV_BLOCKS // 2, 2 * BLOCK, B)
+    ms_480 = res.rows["env_scan"]["ms"]
+    ms_960 = kernel_times(lambda: env_chain(envelope.env_scan, long_blocks, env0),
+                          3)[0] / long_blocks.shape[0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        env_chain(envelope.env_scan, xs, env0)
+    clock = sm_clock_during(graph.replay, ENV_CLOCK_S)
+    floor_ms = ENV_CHAIN_CYCLES * BLOCK / (1e3 * clock) if clock else float("nan")
+    step_ns = 1e6 * (ms_960 - ms_480) / BLOCK
+    print(f"[2] env_scan serial floor {floor_ms:.5f} ms a [{BLOCK}, {B}] block "
+          f"({ENV_CHAIN_CYCLES} chain cycles a step x {BLOCK} at the {clock:g} MHz the SM "
+          f"ran env_scan at) beside its bytes bound {1e3 * 8 * BLOCK * B / HBM_BYTES_PER_S:.5f}"
+          f" ms; kernel [{2 * BLOCK}, {B}] {ms_960:.4f} ms a block, so {step_ns:.2f} ns "
+          f"({step_ns * clock / 1e3:.1f} cycles) a further step ({res.card})", flush=True)
 
 
 def phase2_max_affine(res: Results) -> None:
@@ -1058,14 +1139,20 @@ def _rows(args, m: int) -> tuple:
     return tuple(a[:m] if a.dim() else a for a in args)
 
 
+def head_rows(head, m: int) -> tuple:
+    """The first ``m`` streams of vad_lstm_head's arguments (the weights as
+    they are)."""
+    return (head[0], *_rows(head[1:], m))
+
+
 def _tuple_err(a, b) -> float:
     return max((u.double() - v.double()).abs().max().item() for u, v in zip(a, b))
 
 
 def phase2_models(res: Results) -> None:
     """The four kernels of the model stages against their plain twins at the
-    serving shapes (fleet 1024; vad_front and dfn_features also at 1023 and
-    one stream): vad_front, vad_lstm_head (and beside it
+    serving shapes (fleet 1024; vad_front, vad_lstm_head and dfn_features
+    also at 1023 and one stream): vad_front, vad_lstm_head (and beside it
     ``torch._VF.lstm_cell``, the one PyTorch call of an LSTM cell, GEMMs
     included), dfn_features and dfn_spec_synth (also with the post filter
     on)."""
@@ -1087,24 +1174,27 @@ def phase2_models(res: Results) -> None:
                    4 * m * (BLOCK + 30 + 416 + 30 + 576 + 1024),
                    f32_ops=m * (2 * 160 * 31 + 1024))
 
-    out_k, out_p = silero.vad_lstm_head(*head), silero.vad_lstm_head_plain(*head)
-    flags = int((out_k[2] != out_p[2]).sum() + (out_k[4] != out_p[4]).sum())
-    err = _tuple_err([out_k[i] for i in (0, 1, 3)], [out_p[i] for i in (0, 1, 3)])
-    print(f"[2] vad_lstm_head: blocks seen and available differ from the twin on {flags} "
-          f"streams; available on {int(out_k[4].sum())} of {n}", flush=True)
-    check(flags == 0, "vad_lstm_head: counts or flags differ from the plain twin")
     sw, lstm = head[0], head[2]
     x_t = torch.relu(head[1][:, :128])  # an input of the encoder's width
     lib = lambda: torch._VF.lstm_cell(x_t, (lstm[:, 0], lstm[:, 1]), sw["lstm_wi"],
                                       sw["lstm_wh"], sw["lstm_bi"], sw["lstm_bh"])
     library_ms, _ = kernel_times(lib)
-    # bytes: gate pre-activations and c0 read, h1 and c1 written, the [N]
-    # rows; per unit 3 sigmoids and 2 tanh (~20 operations each) and ~12
-    # more, the head's multiply-add
-    res.report("vad_lstm_head", err, 1e-5, kernel_times(lambda: silero.vad_lstm_head(*head)),
-               cuda_ms(lambda: silero.vad_lstm_head_plain(*head), 20), f"[{n}, 512]",
-               4 * n * (512 + 128 + 256 + 6), f32_ops=n * 128 * 114,
-               library_ms=library_ms)
+    for m in (n, n - 1, 1):
+        args = head_rows(head, m)
+        out_k, out_p = silero.vad_lstm_head(*args), silero.vad_lstm_head_plain(*args)
+        flags = int((out_k[2] != out_p[2]).sum() + (out_k[4] != out_p[4]).sum())
+        err = _tuple_err([out_k[i] for i in (0, 1, 3)], [out_p[i] for i in (0, 1, 3)])
+        print(f"[2] vad_lstm_head [{m}]: blocks seen and available differ from the twin on "
+              f"{flags} streams; available on {int(out_k[4].sum())} of {m}", flush=True)
+        check(flags == 0, f"vad_lstm_head [{m}]: counts or flags differ from the plain twin")
+        # bytes: gate pre-activations and c0 read, h1 and c1 written, the [N]
+        # rows; per unit 3 sigmoids and 2 tanh (~20 operations each) and ~12
+        # more, the head's multiply-add
+        res.report("vad_lstm_head", err, 1e-5,
+                   kernel_times(lambda: silero.vad_lstm_head(*args)),
+                   cuda_ms(lambda: silero.vad_lstm_head_plain(*args), 20), f"[{m}, 512]",
+                   4 * m * (512 + 128 + 256 + 6), f32_ops=m * 128 * 114,
+                   library_ms=library_ms)
     print(f"[2] vad_lstm_head: library torch._VF.lstm_cell (its two GEMMs included, no "
           f"head, EMA or calibration) {library_ms:.4f} ms on the card ({res.card})", flush=True)
 
@@ -1143,7 +1233,10 @@ def timed_calls():
                                           routing, scan)
 
     xs, env0 = env_inputs()
-    yield "env_scan", lambda: env_run(envelope.env_scan, xs, env0), 3, ENV_BLOCKS
+    yield "env_scan", lambda: env_chain(envelope.env_scan, xs, env0), 3, ENV_BLOCKS
+    long_blocks = xs.reshape(ENV_BLOCKS // 2, 2 * BLOCK, -1)
+    yield ("env_scan [960, 2048]", lambda: env_chain(envelope.env_scan, long_blocks, env0), 3,
+           ENV_BLOCKS // 2)
     args = max_affine_inputs()
     yield "max_affine_scan", lambda: scan.max_affine_scan(*args), 20, 1
     for kind in ("limiter", "true-peak"):
@@ -1183,6 +1276,8 @@ def timed_calls():
     front, head, features, synth = model_kernel_inputs()
     yield "vad_front", lambda: silero.vad_front(*front), 20, 1
     yield "vad_lstm_head", lambda: silero.vad_lstm_head(*head), 20, 1
+    one = head_rows(head, 1)  # the live engine's VAD window
+    yield "vad_lstm_head one stream", lambda: silero.vad_lstm_head(*one), 20, 1
     yield "dfn_features", lambda: dfn3.dfn_features(*features), 20, 1
     one = _rows(features, 1)  # the live engine's DeepFilterNet3 frame
     yield "dfn_features one stream", lambda: dfn3.dfn_features(*one), 20, 1
@@ -1319,6 +1414,7 @@ def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str,
           f"{total_ms:.3f}: {parts}, the rest "
           f"{total_ms - sum(split.values()) / calls * 1e3:.3f}", flush=True)
     replay_ms = cuda_ms(eng._graph.replay, 50)
+    REPLAY_MS[tag] = replay_ms
     # the copy-back alone: a graph of _copy_into on the pairs one eager step
     # gives, on copies of the state
     state = sv._clone_tree(eng._state)
@@ -2589,6 +2685,26 @@ def _pcts(times: np.ndarray) -> str:
             f"max {times.max():.3f} ms over {times.size} blocks")
 
 
+def vad_window_times(n_windows: int = 200) -> tuple:
+    """The live engine's VAD worker alone: one 48 kHz stream of the
+    streaming VAD (``models/silero.py``) over ``n_windows`` windows of a
+    voiced capture. Returns ``(replay_ms, call_ms)``: its window graph's
+    replay alone on the card (CUDA events) and the host's milliseconds per
+    ``vad_stream_process`` call that infers a window."""
+    from audioforge_tpu_torch.models import silero
+
+    st = silero.vad_stream_prepare(silero.vad_stream_init(48000, device=DEVICE))
+    win = st["config"]["window_in"]
+    audio = mic_capture(1, -(-n_windows * win // BLOCK), 61)[0]
+    t0 = time.perf_counter()
+    for i in range(n_windows):
+        st, prob = silero.vad_stream_process(st, audio[i * win:(i + 1) * win])
+        check(0.0 <= prob <= 1.0, f"VAD window {i}: probability {prob}")
+    call_ms = 1e3 * (time.perf_counter() - t0) / n_windows
+    r = st["replay"]
+    return cuda_ms(lambda: (r._idx.zero_(), r.graph.replay()), n_windows), call_ms
+
+
 def phase13_live_engine(card: str) -> dict:
     """The single-stream live engine (``AudioProcessor``) on the card for
     each suppressor setting: (a) ``_process_block`` directly over
@@ -2604,7 +2720,8 @@ def phase13_live_engine(card: str) -> dict:
     no capture after the start; per-block DSP time, replays per block), (c)
     paced in real time for LIVE_PACED_S s with a topology change half way
     (its captures checked; drops, underruns, p99, the stall and memory:
-    information). Then (d) the seeded control storm. Returns the launches of
+    information). Then the VAD worker's window alone (:func:`vad_window_times`,
+    information) and (d) the seeded control storm. Returns the launches of
     (a) and (b) by kernel."""
     import os
 
@@ -2743,6 +2860,10 @@ def phase13_live_engine(card: str) -> dict:
                   f"block after it), memory {paced['change_mib']:+.1f} MiB, graph cache "
                   f"{paced['graphs']} topologies ({card}); {time.perf_counter() - t0:.1f} s",
                   flush=True)
+        replay_ms, call_ms = vad_window_times()
+        print(f"[13] the VAD worker's window (information): its graph's replay alone "
+              f"{replay_ms:.4f} ms on the card, {call_ms:.3f} ms on the host per window "
+              f"({card})", flush=True)
         t0 = time.perf_counter()
         report = run_seeded_control_dsp_stress(0x5EED, LIVE_STRESS_ITERATIONS, device=DEVICE)
         print(f"[13] (d) seeded control storm: {report} ({time.perf_counter() - t0:.1f} s, "

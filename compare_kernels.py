@@ -15,16 +15,31 @@ one of the NAMEs. A time is the card's time per call (chip_smoke.py
 ``kernel_times``: a CUDA graph of the calls replayed, without the host's
 launch cost). It prints the card's name and power limit, each run's times
 and, per configuration, both runs of each checkout.
+
+``python3 compare_kernels.py OTHER_ROOT --replays`` runs six processes in
+turns (OTHER_ROOT, this, OTHER_ROOT, this, this, OTHER_ROOT), each timing two
+replays on its checkout's package: chip_smoke.py's VAD-on serving path at fleet 1024
+([8], ``phase_model_path`` with REPLAY_TIMED_CALLS timed calls; its graph's
+replay alone) and the live engine's VAD worker (``vad_window_times``: its
+window graph's replay alone, host ms a window). A replay's time can differ
+between processes of one tree, hence six processes.
+
+``python3 compare_kernels.py --sass FUNCTION ...`` builds this checkout's
+kernels and prints the SASS (``cuobjdump -sass``) of every kernel function
+whose name contains one of the FUNCTIONs, for reading a loop's dependency
+chain or checking that a kernel's loads go out together.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+REPLAY_TIMED_CALLS = 50
 
 
 def measure(root: str, names: list[str]) -> dict:
@@ -42,9 +57,43 @@ def measure(root: str, names: list[str]) -> dict:
     return out
 
 
+def measure_replays(root: str) -> dict:
+    """The replays' times in ms on the package of the checkout at ``root``."""
+    import chip_smoke as cs  # this checkout's helpers; the package from root
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    card = cs.phase0_device()
+    cs.phase1_build()
+    cs.MODEL_TIMED_CALLS = REPLAY_TIMED_CALLS
+    cs.phase_model_path(card, "VAD-on", "[8]")
+    window_ms, call_ms = cs.vad_window_times()
+    return {"VAD-on replay": cs.REPLAY_MS["[8]"], "VAD window replay": window_ms,
+            "VAD window host": call_ms}
+
+
+def sass(names: list[str]) -> str:
+    """The SASS of this checkout's kernel functions whose names contain one
+    of ``names``."""
+    from audioforge_tpu_torch import kernels
+
+    lib = kernels.build()
+    tool = Path(kernels._find_nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    parts = re.split(r"\n\s*Function : ", dump)
+    return "".join(f"Function : {p}" for p in parts[1:]
+                   if any(n in p.splitlines()[0] for n in names))
+
+
 def main() -> int:
+    if len(sys.argv) >= 3 and sys.argv[1] == "--sass":
+        print(sass(sys.argv[2:]))
+        return 0
     if len(sys.argv) >= 3 and sys.argv[1] == "--measure":
         print(json.dumps(measure(sys.argv[2], sys.argv[3:])))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--measure-replays":
+        print(json.dumps(measure_replays(sys.argv[2])))
         return 0
     if len(sys.argv) < 2 or sys.argv[1].startswith("-"):
         print(__doc__, file=sys.stderr)
@@ -54,12 +103,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False, timeout=60)
     print(smi.stdout.strip() or "card not measured", flush=True)
+    this = str(HERE)
+    if names == ["--replays"]:
+        mode, names, turns = "--measure-replays", [], (other, this, other, this, this, other)
+    else:
+        mode, turns = "--measure", (other, this, this, other)
     runs = []
-    for label, root in (("other", other), ("this", str(HERE)), ("this", str(HERE)),
-                        ("other", other)):
-        proc = subprocess.run([sys.executable, str(HERE / "compare_kernels.py"),
-                               "--measure", root, *names], capture_output=True, text=True,
-                              check=False, cwd=root)
+    for root in turns:
+        label = "this" if root == this else "other"
+        proc = subprocess.run([sys.executable, str(HERE / "compare_kernels.py"), mode, root,
+                               *names], capture_output=True, text=True, check=False, cwd=root)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return 1

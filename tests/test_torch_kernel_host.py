@@ -1,6 +1,6 @@
-"""Host C++ check of the ``biquad_cascade``, ``deesser_scan``,
-``compressor_scan``, ``gate_scan``, ``cleanup_scan`` and ``max_affine_scan``
-CUDA sources.
+"""Host C++ check of the CUDA sources: ``biquad_cascade``, ``deesser_scan``,
+``compressor_scan``, ``gate_scan``, ``cleanup_scan``, ``max_affine_scan``,
+the model stages' kernels and ``env_scan``.
 
 The kernels keep each lane's step in ``AFK_HD`` functions (``csrc/afk.cuh``)
 with the ``__global__`` parts under ``__CUDACC__``, so ``g++ -x c++`` builds
@@ -44,6 +44,9 @@ DC blocker runs in DF2T form, which rounds in another order than the twin's
 ``max_affine_scan`` and its limiter form ``limiter_gain_scan`` run the same
 way (tile, chunks, serial loop, per-sample phases) on lookahead-limiter- and
 true-peak-limiter-shaped inputs, equal to their twins to the bit.
+``env_scan`` runs on its kernel's chunk schedule over the kernel's ring of
+column-major strip tiles (the serial phase a column a lane, four samples a
+read, the log a chunk behind), at T = 480 and 1000 and B = 16, 17 and 1.
 
 Needs ``g++``; without it the tests skip with a reason.
 """
@@ -63,6 +66,7 @@ from audioforge_tpu_torch.models import silero as tsil
 from audioforge_tpu_torch.ops import biquad as tbq
 from audioforge_tpu_torch.ops import compressor as tcomp
 from audioforge_tpu_torch.ops import deesser as tdes
+from audioforge_tpu_torch.ops import envelope as tenv
 from audioforge_tpu_torch.ops import resample as tres
 from audioforge_tpu_torch.ops import gate as tgate
 from audioforge_tpu_torch.ops import routing as troute
@@ -85,6 +89,7 @@ RUNNER = r"""
 #include "silero_lstm.cu"
 #include "dfn_features.cu"
 #include "dfn_synth.cu"
+#include "env_scan.cu"
 
 // vad_front per stream, as its block runs it: the ext row and the kept
 // window staged, thread o's decimated sample, the history, then the frames'
@@ -114,8 +119,9 @@ extern "C" int host_vad_front(const float* x, const float* hist, const float* wi
     return 0;
 }
 
-// vad_lstm_head per stream: each lane's four units in the kernel's order,
-// the head's dot as the warp's xor butterfly (lane 0's sum), lane 0's tail.
+// vad_lstm_head per stream, as its block runs it: thread u's unit, the
+// head's dot a butterfly on each warp (lane 0's sum), the warps' parts added
+// in warp order, thread 0's tail.
 extern "C" int host_vad_lstm_head(const float* gates, const float* lstm, const float* bi,
                                   const float* bh, const float* head_w, float head_b,
                                   const float* smoothed, const int* seen, float smoothing,
@@ -124,27 +130,68 @@ extern "C" int host_vad_lstm_head(const float* gates, const float* lstm, const f
     const int H = VL_HIDDEN;
     for (int n = 0; n < N; ++n) {
         const float* g = gates + n * 4 * H;
-        float part[32];
-        for (int lane = 0; lane < 32; ++lane) {
-            part[lane] = 0.0f;
-            for (int j = 0; j < VL_UNITS; ++j) {
-                const int u = VL_UNITS * lane + j;
-                const float v = vl_unit(g[u], g[H + u], g[2 * H + u], g[3 * H + u], bi[u],
-                                        bi[H + u], bi[2 * H + u], bi[3 * H + u], bh[u],
-                                        bh[H + u], bh[2 * H + u], bh[3 * H + u],
-                                        lstm[n * 2 * H + H + u], head_w[u],
-                                        lstm_out + n * 2 * H + u,
-                                        lstm_out + n * 2 * H + H + u);
-                part[lane] = j == 0 ? v : part[lane] + v;
+        float part[VL_HIDDEN];
+        for (int u = 0; u < H; ++u)
+            part[u] = vl_unit(g[u], g[H + u], g[2 * H + u], g[3 * H + u], bi[u], bi[H + u],
+                              bi[2 * H + u], bi[3 * H + u], bh[u], bh[H + u], bh[2 * H + u],
+                              bh[3 * H + u], lstm[n * 2 * H + H + u], head_w[u],
+                              lstm_out + n * 2 * H + u, lstm_out + n * 2 * H + H + u);
+        float dot = 0.0f;
+        for (int w = 0; w < VL_WARPS; ++w) {
+            float* lanes = part + 32 * w;
+            for (int o = 16; o > 0; o >>= 1) {
+                float next[32];
+                for (int lane = 0; lane < 32; ++lane) next[lane] = lanes[lane] + lanes[lane ^ o];
+                std::copy(next, next + 32, lanes);
+            }
+            dot = w == 0 ? lanes[0] : dot + lanes[0];
+        }
+        vl_finish(dot, head_b, smoothing, smoothed[n], seen[n], warmup_blocks,
+                  smoothed_out + n, seen_out + n, prob + n, avail + n);
+    }
+    return 0;
+}
+
+// env_scan per strip of ES_WIDTH columns, on the kernel's chunk schedule
+// over its ring of column-major tiles: ES_AHEAD chunks copied first, then
+// round k runs the serial phase of chunk k, the copy of chunk
+// k + ES_AHEAD - 1 and the log of chunk k - 1. The kernel runs a round's
+// copy and log beside the serial phase; here they come after it, and the
+// copy before the log, the order in which a tile reused too early would
+// show.
+extern "C" int host_env_scan(const float* x, const float* env_in, float* y, float* env_out,
+                             int T, int B) {
+    std::vector<float> ring(ES_STAGES * ES_TILE);
+    const int chunks = (T + ES_CHUNK - 1) / ES_CHUNK;
+    for (int b0 = 0; b0 < B; b0 += ES_WIDTH) {
+        const int width = std::min(ES_WIDTH, B - b0);
+        float env[ES_WIDTH];
+        for (int w = 0; w < width; ++w) env[w] = env_in[b0 + w];
+        auto tile = [&](int k) { return ring.data() + (k % ES_STAGES) * ES_TILE; };
+        auto copy = [&](int k) {
+            if (k >= chunks) return;
+            std::fill(tile(k), tile(k) + ES_TILE, NAN);
+            for (int r = 0; r < env_scan_rows(T, k); ++r)
+                for (int c = 0; c < width; ++c)
+                    tile(k)[c * ES_STRIDE + r] = x[(long long)(k * ES_CHUNK + r) * B + b0 + c];
+        };
+        auto log = [&](int k) {
+            for (int r = 0; r < env_scan_rows(T, k); ++r)
+                for (int c = 0; c < width; ++c)
+                    y[(long long)(k * ES_CHUNK + r) * B + b0 + c] =
+                        env_scan_log(tile(k)[c * ES_STRIDE + r]);
+        };
+        for (int k = 0; k < ES_AHEAD; ++k) copy(k);
+        for (int k = 0; k < chunks; ++k) {
+            for (int w = 0; w < width; ++w)
+                env[w] = env_scan_chunk(tile(k) + w * ES_STRIDE, env_scan_rows(T, k), env[w]);
+            if (k > 0) {
+                copy(k - 1 + ES_AHEAD);
+                log(k - 1);
             }
         }
-        for (int o = 16; o > 0; o >>= 1) {
-            float next[32];
-            for (int lane = 0; lane < 32; ++lane) next[lane] = part[lane] + part[lane ^ o];
-            std::copy(next, next + 32, part);
-        }
-        vl_finish(part[0], head_b, smoothing, smoothed[n], seen[n], warmup_blocks,
-                  smoothed_out + n, seen_out + n, prob + n, avail + n);
+        if (chunks > 0) log(chunks - 1);
+        for (int w = 0; w < width; ++w) env_out[b0 + w] = env[w];
     }
     return 0;
 }
@@ -703,6 +750,8 @@ def host_lib(tmp_path_factory):
     lib.host_dfn_features.restype = _I
     lib.host_dfn_spec_synth.argtypes = (_P,) * 5 + (ctypes.c_float, ctypes.c_float, _P, _I)
     lib.host_dfn_spec_synth.restype = _I
+    lib.host_env_scan.argtypes = (_P,) * 4 + (_I, _I)
+    lib.host_env_scan.restype = _I
     lib.host_quotient_mismatches.argtypes = (_I, _I)
     lib.host_quotient_mismatches.restype = ctypes.c_longlong
     return lib
@@ -1221,8 +1270,8 @@ def test_vad_front_host_build_matches_plain(host_lib, gain):
 def test_vad_lstm_head_host_build_matches_plain(host_lib, smoothing):
     """Streams before, at and after the warm-up (blocks seen 0-6), a NaN
     smoothed value on one warm stream. The state 1e-6, the probability and
-    the EMA 1e-5 (the head's dot in the warp's order), counts and flags
-    exact."""
+    the EMA 1e-5 (the head's dot in the kernel's order: a butterfly on each
+    warp, the warps' parts added in warp order), counts and flags exact."""
     rng = np.random.default_rng(91)
     p = {k: torch.as_tensor(v) for k, v in tsil.init_params().items()}
     p["lstm_bi"] = torch.as_tensor(rng.normal(0, 0.3, 512).astype(np.float32))
@@ -1250,6 +1299,29 @@ def test_vad_lstm_head_host_build_matches_plain(host_lib, smoothing):
     np.testing.assert_array_equal(out["seen"], seen_p.numpy())
     np.testing.assert_array_equal(out["avail"], ap.numpy())
     assert out["avail"].sum() == (seen >= 3).sum() and out["prob"][5] == 0.0
+
+
+@pytest.mark.parametrize("T_block", [480, 1000])
+@pytest.mark.parametrize("B", [16, 17, 1])
+def test_env_scan_host_build_matches_plain(host_lib, B, T_block):
+    """The kernel's chunk schedule over its ring of tiles: T = 480 (a last
+    chunk that is not whole) and 1000 (more chunks than the ring holds); B
+    a whole strip, a strip and one column, one column. Two consecutive
+    blocks, the second from the first's envelope. y 1e-5 (libm's logf
+    against torch's log), the envelope 1e-6 relative (an FMA against the
+    twin's rounded product and sum)."""
+    rng = np.random.default_rng(93)
+    env = rng.uniform(0, 1, B).astype(np.float32)
+    for _ in range(2):
+        x = rng.standard_normal((T_block, B)).astype(np.float32)
+        x[T_block // 3] = 0.0  # env decays towards 0 over a silent row
+        y, env_out = np.empty_like(x), np.empty_like(env)
+        assert host_lib.host_env_scan(_ptr(x), _ptr(env), _ptr(y), _ptr(env_out),
+                                      T_block, B) == 0
+        yp, ep = tenv.env_scan_plain(torch.as_tensor(x), torch.as_tensor(env))
+        np.testing.assert_allclose(y, yp.numpy(), atol=1e-5)
+        np.testing.assert_allclose(env_out, ep.numpy(), rtol=1e-6)
+        env = env_out
 
 
 @pytest.mark.parametrize("level", [1e-3, 1.0, 30.0])
