@@ -2,7 +2,8 @@
 
 - ``devices``: list the virtual audio endpoints.
 - ``run``: run the single-stream live engine (``AudioProcessor``) on named
-  devices, on the card unless ``--device cpu``.
+  devices, on the card unless ``--device cpu``; ``--preset file.json``
+  applies a saved preset first.
 - ``diagnostics``: start the live engine, let it settle, print its
   diagnostics dict.
 - ``serve a.wav b.wav ...``: process N 48 kHz mono 16-bit WAVs together
@@ -47,13 +48,15 @@ def _cmd_devices(_args) -> int:
 
 
 def _cmd_run(args) -> int:
+    from .config import load_preset
+    from .runtime.preset_io import apply_preset
     from .runtime.processor import AudioProcessor
 
-    if args.preset:
-        raise NotImplementedError(
-            "run --preset needs the preset layer (config/, preset_io), which is "
-            "not ported yet (ROADMAP queue 1 item 8)")
     processor = AudioProcessor(device=args.device)
+    if args.preset:
+        warning = apply_preset(processor, load_preset(args.preset))
+        if warning:
+            print(f"note: {warning}")
     print(processor.start(args.input_device, args.output_device))
     try:
         deadline = time.monotonic() + args.duration if args.duration else None
@@ -151,7 +154,7 @@ def main(argv=None) -> int:
     run.add_argument("--device", default="cuda",
                      help="torch device: cuda (default) or cpu")
     run.add_argument("--preset", default=None,
-                     help="path to a preset .json (not ported yet)")
+                     help="path to a preset .json to apply before starting")
     run.add_argument("--duration", type=float, default=0.0,
                      help="seconds to run (0 = until interrupted)")
     run.add_argument("--verbose", action="store_true")

@@ -6,8 +6,8 @@ function runs audio (a CUDA device unless asked otherwise; without a card
 those raise). The heavy part of each simulator is one take-level loop that
 replays one captured CUDA graph a block on the card
 (:mod:`.runtime.replay`); the aggregation is host numpy, as in the
-reference. ``simulate_auto_eq_chain_batched(mesh=...)`` (candidates sharded
-over several devices) is not ported yet.
+reference. ``simulate_auto_eq_chain_batched(mesh=...)`` splits its
+candidates over the shards of a fleet mesh (:mod:`.parallel`).
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from .ops import gate as gate_ops
 from .ops import limiter as lim_ops
 from .ops import loudness as loud_ops
 from .ops import true_peak as tp_ops
+from .parallel.fleet import (FleetMesh, device_scope, mesh_devices, pad_candidates,
+                             shard_batched_tree)
 from .runtime import chain as chain_rt
 from .runtime.replay import run_take
 
@@ -398,13 +400,26 @@ def _active_split(in_rows_db):
     return in_rows_db >= active_threshold_db, active_threshold_db
 
 
-def _run_chain(cfg, comp_params, eq_bands, blocks, dev):
-    """The chain over ``blocks [B, nb, T]`` on ``dev``. Returns host
-    ``(ys [B, nb, T], stats [B, nb])``."""
-    b = blocks.shape[0]
-    state = chain_rt.chain_init(cfg, comp_params, eq_bands, batch_shape=(b,), device=dev)
-    _, ys, stats = chain_rt.chain_run(cfg, comp_params, state, blocks, return_audio=True)
-    return ys.cpu().numpy(), {k: v.cpu().numpy() for k, v in stats.items()}
+def _run_chain(cfg, comp_params, base_params, eq_bands, blocks, n_candidates, mesh):
+    """The chain over ``n_candidates`` candidates of ``comp_params`` on the
+    shared ``blocks [nb, T]``, the candidates split over the shards of
+    ``mesh`` (a leaf shaped like ``base_params``'s is shared): each shard
+    runs its range on its device, every shard started before any is waited
+    on. Returns host ``(ys [B, nb, T], stats [B, nb])`` in candidate order."""
+    b = n_candidates // mesh.size
+    launched = []
+    for dev, params in zip(mesh.devices, shard_batched_tree(comp_params, base_params, mesh)):
+        with device_scope(dev):
+            x = torch.as_tensor(blocks, device=dev)
+            state = chain_rt.chain_init(cfg, params, eq_bands, batch_shape=(b,), device=dev)
+            _, ys, stats = chain_rt.chain_run(cfg, params, state,
+                                              x[None].expand(b, *blocks.shape),
+                                              return_audio=True)
+            launched.append((ys, stats))
+    ys = np.concatenate([y.cpu().numpy() for y, _ in launched])
+    stats = {k: np.concatenate([st[k].cpu().numpy() for _, st in launched])
+             for k in launched[0][1]}
+    return ys, stats
 
 
 def simulate_auto_eq_chain(audio, sample_rate, bands, settings=None, *, device="cuda"):
@@ -418,13 +433,12 @@ def simulate_auto_eq_chain(audio, sample_rate, bands, settings=None, *, device="
     eq_bands = _eq_bands_from(bands, settings, sample_rate)
     cfg, comp_params, effective_ceiling_db = _chain_config_from_settings(sample_rate, settings)
     return_output_audio = bool(_settings_get(settings, "return_output_audio", False))
-    dev = kernels.resolve_device(device, "simulate_auto_eq_chain")
+    mesh = FleetMesh((kernels.resolve_device(device, "simulate_auto_eq_chain"),))
 
     blocks, nb, valid, n = _take_blocks(audio, _analysis_block(sample_rate))
     if n == 0:
         valid[:] = 0
-    ys, stats = _run_chain(cfg, comp_params, eq_bands,
-                           torch.as_tensor(blocks, device=dev)[None], dev)
+    ys, stats = _run_chain(cfg, comp_params, comp_params, eq_bands, blocks, 1, mesh)
     # the padded tail adds no energy; the partial block's RMS is over its
     # valid samples
     in_sq = (blocks.astype(np.float64) ** 2).sum(axis=1)
@@ -440,27 +454,34 @@ def simulate_auto_eq_chain(audio, sample_rate, bands, settings=None, *, device="
 
 
 def simulate_auto_eq_chain_batched(audio, sample_rate, bands, settings, param_sets,
-                                   mesh=None, *, device="cuda"):
+                                   mesh=None, *, device=None):
     """Evaluate many compressor parameterisations of the same chain in one
     batched run: the candidates are streams. ``param_sets`` is a list of
     dicts {threshold_db, ratio, attack_ms, release_ms}; every other setting
     is shared. Returns one diagnostics dict a candidate (the keys of
-    :func:`simulate_auto_eq_chain`, without output audio)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "simulate_auto_eq_chain_batched(mesh=...) shards the candidates over "
-            "several devices and is not ported yet (ROADMAP queue 1 item 7, "
-            "multi-GPU)")
+    :func:`simulate_auto_eq_chain`, without output audio).
+
+    ``mesh``: a :class:`~audioforge_tpu_torch.parallel.FleetMesh` splits the
+    candidates over its shards, each on its device (no data crosses devices
+    until the results come back). The list is padded to a multiple of the
+    shard count internally; the results keep the caller's order and length.
+    ``device`` is the card by default; with a mesh, its first device."""
     started = time.perf_counter()
     _validate_sample_rate(sample_rate)
     sample_rate = float(sample_rate)
     eq_bands = _eq_bands_from(bands, settings, sample_rate)
     cfg, base_params, effective_ceiling_db = _chain_config_from_settings(sample_rate,
                                                                          settings)
-    B = len(param_sets)
-    if B == 0:
+    B_requested = len(param_sets)
+    if B_requested == 0:
         return []
-    dev = kernels.resolve_device(device, "simulate_auto_eq_chain_batched")
+    if mesh is None:
+        mesh = FleetMesh((kernels.resolve_device("cuda" if device is None else device,
+                                                 "simulate_auto_eq_chain_batched"),))
+    else:
+        mesh = FleetMesh(mesh_devices(mesh, device, "simulate_auto_eq_chain_batched"))
+    param_sets, _ = pad_candidates(list(param_sets), mesh.size)
+    B = len(param_sets)
     fs = sample_rate
     f32 = lambda values: np.asarray(values, np.float32)
     comp_params = dict(base_params)
@@ -471,17 +492,17 @@ def simulate_auto_eq_chain_batched(audio, sample_rate, bands, settings, param_se
     comp_params["base_release_ms"] = f32([float(p["release_ms"]) for p in param_sets])
 
     blocks, nb, valid, n = _take_blocks(audio, _analysis_block(sample_rate))
-    x = torch.as_tensor(blocks, device=dev)
-    ys, stats = _run_chain(cfg, comp_params, eq_bands, x[None].expand(B, nb, -1), dev)
+    ys, stats = _run_chain(cfg, comp_params, base_params, eq_bands, blocks, B, mesh)
 
     in_sq = (blocks.astype(np.float64) ** 2).sum(axis=1)  # the shared input
     in_rows_db = _rows_db(in_sq, valid)
     active_mask, active_threshold_db = _active_split(in_rows_db)
     runtime_ms = (time.perf_counter() - started) * 1000.0 / B
+    # pad rows of a mesh are dropped
     return [_diagnostics({k: v[b] for k, v in stats.items()}, ys[b], in_sq, in_rows_db,
                          n, valid, active_mask, active_threshold_db,
                          effective_ceiling_db, runtime_ms)[0]
-            for b in range(B)]
+            for b in range(B_requested)]
 
 
 def simulate_auto_makeup_control(audio, sample_rate, vad_probabilities, noise_floor_db,

@@ -161,16 +161,28 @@ AFK_HD int afk_tile_chunk(int T, int rows, int budget) {
 #ifdef __CUDACC__
 inline int afk_blocks(int n) { return (n + AFK_THREADS - 1) / AFK_THREADS; }
 
-// Raise `kernel`'s dynamic shared-memory limit where `bytes` needs it.
-// `allowed` (a static of the caller, one per kernel) remembers what was set,
-// so later launches, also those inside CUDA graph capture, make no
-// cudaFuncSetAttribute call.
+// Raise `kernel`'s dynamic shared-memory limit where `bytes` needs it. The
+// limit is an attribute of the kernel on each device, so `allowed` (a static
+// of the caller, one per kernel) remembers what was set on each device: later
+// launches on that device, also those inside CUDA graph capture, make no
+// cudaFuncSetAttribute call, and a launch on another device sets its own.
+constexpr int AFK_MAX_DEVICES = 64;
+struct AfkSmemAllowed {
+    size_t bytes[AFK_MAX_DEVICES] = {};
+};
+
 template <typename Kernel>
-inline int afk_allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
-    if (bytes <= 48 * 1024 || bytes <= allowed) return 0;
-    const int err = static_cast<int>(cudaFuncSetAttribute(
+inline int afk_allow_smem(Kernel kernel, size_t bytes, AfkSmemAllowed& allowed) {
+    if (bytes <= 48 * 1024) return 0;
+    int device = 0;
+    int err = static_cast<int>(cudaGetDevice(&device));
+    if (err != 0) return err;
+    if (device < 0 || device >= AFK_MAX_DEVICES)
+        return static_cast<int>(cudaErrorInvalidDevice);
+    if (bytes <= allowed.bytes[device]) return 0;
+    err = static_cast<int>(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
-    if (err == 0) allowed = bytes;
+    if (err == 0) allowed.bytes[device] = bytes;
     return err;
 }
 

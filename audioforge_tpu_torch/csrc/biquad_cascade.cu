@@ -226,7 +226,7 @@ static int launch_biquad_cascade(const float* x, const float* coeffs,
     const int tc_max = afk_tile_chunk(T, G, AFK_TILE_SMEM_BYTES);
     const int stride = afk_tile_stride(tc_max);
     const size_t smem = sizeof(float) * G * stride;
-    static size_t allowed = 0;
+    static AfkSmemAllowed allowed;
     const int err = afk_allow_smem(biquad_cascade_kernel<P>, smem, allowed);
     if (err != 0) return err;
     biquad_cascade_kernel<P><<<(N + G - 1) / G, G * P, smem, stream>>>(

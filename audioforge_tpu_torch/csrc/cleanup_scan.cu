@@ -477,7 +477,7 @@ AFK_API int afk_cleanup_scan(const float* x, const float* fin, const float* hum_
     const int stride = afk_tile_stride(tc_max);
     const size_t smem = sizeof(float) * (KR_ROWS * CL_STREAMS * stride
                                          + (CF_RUMBLE + CI_COUNT + 1) * CL_STREAMS);
-    static size_t allowed = 0;
+    static AfkSmemAllowed allowed;
     const int err = afk_allow_smem(cleanup_scan_kernel, smem, allowed);
     if (err != 0) return err;
     cleanup_scan_kernel<<<(N + CL_STREAMS - 1) / CL_STREAMS, CL_THREADS, smem,

@@ -485,7 +485,7 @@ static int compressor_launch(const float* x, const float* params, const float* s
     const int stride = afk_tile_stride(tc_max);
     const size_t smem = sizeof(float) * (CR_ROWS * CS_STREAMS * stride
                                          + (CS_STATE_ROWS + P_COUNT) * CS_STREAMS);
-    static size_t allowed = 0;  // one per instantiation
+    static AfkSmemAllowed allowed;  // one per instantiation
     const int err = afk_allow_smem(compressor_scan_kernel<SC, ADAPT>, smem, allowed);
     if (err != 0) return err;
     compressor_scan_kernel<SC, ADAPT><<<(N + CS_STREAMS - 1) / CS_STREAMS, CS_THREADS, smem, st>>>(

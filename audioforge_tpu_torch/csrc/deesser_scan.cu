@@ -517,7 +517,7 @@ AFK_API int afk_deesser_scan(const float* x, const float* s_in, float* y,
     const int stride = afk_tile_stride(tc_max);
     const size_t smem = sizeof(float) * DR_ROWS * DS_STREAMS * stride;
     const int blocks = (N + DS_STREAMS - 1) / DS_STREAMS;
-    static size_t allowed_true = 0, allowed_false = 0;
+    static AfkSmemAllowed allowed_true, allowed_false;
     int err;
     if (auto_mode) {
         err = afk_allow_smem(deesser_scan_kernel<true>, smem, allowed_true);

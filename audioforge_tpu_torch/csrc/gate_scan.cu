@@ -574,7 +574,7 @@ static int gate_launch(const float* x, const float* params, const float* vad,
     const int stride = afk_tile_stride(tc_max);
     const size_t smem = sizeof(float) * (GR_ROWS * GT_STREAMS * stride
                                          + (GF_COUNT + GI_COUNT + GP_COUNT + GV_COUNT) * GT_STREAMS);
-    static size_t allowed = 0;  // one per instantiation
+    static AfkSmemAllowed allowed;  // one per instantiation
     const int err = afk_allow_smem(gate_scan_kernel<MODE>, smem, allowed);
     if (err != 0) return err;
     gate_scan_kernel<MODE><<<(N + GT_STREAMS - 1) / GT_STREAMS, GT_THREADS, smem, st>>>(

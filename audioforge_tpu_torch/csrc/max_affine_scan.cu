@@ -225,7 +225,7 @@ AFK_API int afk_limiter_gain_scan(const float* peak, int peak_ld, const float* x
     const int tc_max = ma_chunk(T, LR_ROWS);
     const int stride = afk_tile_stride(tc_max);
     const size_t smem = sizeof(float) * LR_ROWS * MA_STREAMS * stride;
-    static size_t allowed = 0;
+    static AfkSmemAllowed allowed;
     const int err = afk_allow_smem(limiter_gain_scan_kernel, smem, allowed);
     if (err != 0) return err;
     limiter_gain_scan_kernel<<<(N + MA_STREAMS - 1) / MA_STREAMS, MA_THREADS, smem,

@@ -25,8 +25,12 @@ t-1 while block t runs; ``start`` runs the free-run loop.
 The engine runs on the card unless it is given ``device="cpu"``; without a
 CUDA device, building one for the card raises.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-stream-axis sharding.
+With ``sharding`` (a :class:`~audioforge_tpu_torch.parallel.FleetMesh`) the
+slots split into equal contiguous ranges, one a shard, as the JAX engine
+shards its stream axis: each shard keeps its own state, controls and graph
+on its device (the shared leaves copied to each), every shard's replay is
+issued before any is waited on, and the host's slot bookkeeping, staging
+buffers and sinks stay one. No collective runs inside a step.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from .. import kernels
 from ..models import dfn3, rnnoise, silero
 from ..ops import eq as eq_ops
 from ..ops import resample
+from ..parallel.fleet import device_scope, mesh_devices
 from . import live_chain as lc
 from .replay import capture_graph
 from .replay import clone_tree as _clone_tree
@@ -280,6 +285,28 @@ def _to_device(tree, device):
     return torch.as_tensor(np.copy(tree), device=device)
 
 
+def _host_rows(tree, lo: int, hi: int):
+    """The rows ``[lo, hi)`` of a host control tree; a leaf every stream
+    shares (0-d) is kept whole."""
+    if isinstance(tree, dict):
+        return {k: _host_rows(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi] if np.ndim(tree) else tree
+
+
+def _state_rows(tree, lo: int, hi: int, device, path=()):
+    """Copies on ``device`` of the rows ``[lo, hi)`` of a state tree: every
+    leaf has its stream on axis 0 except those in ``_SHARED``, which are
+    copied whole."""
+    out = {}
+    for k, v in tree.items():
+        p = path + (k,)
+        if isinstance(v, dict):
+            out[k] = _state_rows(v, lo, hi, device, p)
+        else:
+            out[k] = (v if p in _SHARED else v[lo:hi]).to(device, copy=True)
+    return out
+
+
 def _copy_host_tree(dst, src) -> None:
     """Copy a tree of numpy leaves into the tensors of ``dst``."""
     for k, d in dst.items():
@@ -308,6 +335,36 @@ class _Slot:
         self.blocks = 0
 
 
+class _Shard:
+    """The device side of the engine's slots ``[lo, hi)``: their static state,
+    fresh state, control tree and step inputs on ``device``, and the CUDA
+    graph of their step."""
+
+    __slots__ = ("device", "lo", "hi", "_fresh", "_state", "_params_static", "_params_dev",
+                 "_x", "_active", "_active_host", "_vad_prob", "_vad_avail", "_graph",
+                 "_graph_out", "_graph_launches", "capture_seconds")
+
+    def __init__(self, device, lo: int, hi: int, fresh: dict, params: dict, weights: dict):
+        n = hi - lo
+        self.device, self.lo, self.hi = device, lo, hi
+        self._fresh = fresh
+        self._state = _clone_tree(fresh)  # the static state buffers
+        # static inputs of the step: the control tree (written after a
+        # control write), the block, the active mask and the external VAD
+        self._params_static = _to_device(params, device)
+        self._params_dev = {k: dict(v, weights=weights[k]) if k in weights else v
+                            for k, v in self._params_static.items()}
+        self._x = torch.zeros((n, BLOCK), dtype=torch.float32, device=device)
+        self._active = torch.zeros(n, dtype=torch.bool, device=device)
+        self._active_host = np.zeros(n, bool)
+        self._vad_prob = torch.zeros(n, dtype=torch.float32, device=device)
+        self._vad_avail = torch.zeros(n, dtype=torch.bool, device=device)
+        self._graph = None
+        self._graph_out = None
+        self._graph_launches = {}
+        self.capture_seconds = None
+
+
 class ServingEngine:
     """N-stream serving engine around one batched block step.
 
@@ -320,26 +377,29 @@ class ServingEngine:
         eng.set_stream_params(slot, compressor_threshold_db=-24.0)
         eng.stream_diagnostics(slot)
         eng.detach(slot)
+
+    ``sharding``: a :class:`~audioforge_tpu_torch.parallel.FleetMesh` of S
+    devices splits the slots into S equal ranges (shard ``k`` owns slots
+    ``[k*C/S, (k+1)*C/S)``), each with its own state, controls and graph on
+    its device; the host side (slots, staging, sinks) stays one. Every
+    shard's replay starts before any is waited on. Metrics come back as
+    ``[N]`` tensors on the mesh's first device, which is also the engine's
+    ``device``.
     """
 
-    def __init__(self, config: ServingConfig | None = None, *, device="cuda",
+    def __init__(self, config: ServingConfig | None = None, *, device=None,
                  eq_bands=None, sharding=None, rnnoise_weights=None,
                  dfn_weights=None, vad_weights=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "stream-axis sharding is not ported yet (ROADMAP queue 1, "
-                "multi-GPU)")
-        self.device = kernels.resolve_device(device, "ServingEngine")
         self.config = config or ServingConfig()
         n = self.config.capacity
-        dev = self.device
+        devices = self._shard_devices(device, sharding, n)
+        self.device = dev = devices[0]
+        self.sharding = sharding
         self._lock = threading.RLock()
         self._slots = [_Slot() for _ in range(n)]
         self._reset_pending = np.zeros(n, bool)
         self._pending_eq = {}
         self._eq_layout = eq_ops.eq_layout(eq_bands)
-        self._fresh = _serving_state_init(self.config, dev, eq_bands)
-        self._state = _clone_tree(self._fresh)  # the static state buffers
         self._last_metrics = None
         self._chain_kw = {}
         self._params = {"chain": _stack_tree(lc.live_params(self.config.chain), n)}
@@ -357,7 +417,7 @@ class ServingEngine:
                 supp_weights = rnnoise_weights
             else:
                 supp_weights = dfn_weights or dfn3.default_params(model == "deepfilter-ll")
-            weights["supp"] = {k: v.to(dev) for k, v in supp_weights.items()}
+            weights["supp"] = supp_weights
             self._params["supp"] = {
                 "strength": np.ones(n, np.float32),
                 "enabled": np.ones(n, bool),
@@ -368,28 +428,25 @@ class ServingEngine:
                     atten_lim_db=np.float32(dfn3.DEFAULT_ATTEN_LIM_DB),
                     post_filter_beta=np.float32(dfn3.DEFAULT_POST_FILTER_BETA))
         if self.config.vad_enabled:
-            weights["vad"] = {k: v.to(dev) for k, v in
-                              (vad_weights or silero.default_params()).items()}
+            weights["vad"] = vad_weights or silero.default_params()
             self._params["vad"] = {"pre_gain": np.float32(1.0),
                                    "smoothing": np.float32(0.5)}
-        # static inputs of the step: the control tree (written after a
-        # control write), the block, the active mask and the external VAD
-        self._params_static = _to_device(self._params, dev)
-        self._params_dev = {k: dict(v, weights=weights[k]) if k in weights else v
-                            for k, v in self._params_static.items()}
+        fresh = _serving_state_init(self.config, dev, eq_bands)
+        rows = n // len(devices)
+        self._rows_per_shard = rows
+        self._shards = []
+        for k, d in enumerate(devices):
+            lo, hi = k * rows, (k + 1) * rows
+            with device_scope(d):
+                self._shards.append(_Shard(
+                    d, lo, hi, fresh if len(devices) == 1 else _state_rows(fresh, lo, hi, d),
+                    _host_rows(self._params, lo, hi),
+                    {g: {name: w.to(d) for name, w in ws.items()}
+                     for g, ws in weights.items()}))
         self._params_dirty = False
-        self._x = torch.zeros((n, BLOCK), dtype=torch.float32, device=dev)
-        self._active = torch.zeros(n, dtype=torch.bool, device=dev)
-        self._active_host = np.zeros(n, bool)
-        self._vad_prob = torch.zeros(n, dtype=torch.float32, device=dev)
-        self._vad_avail = torch.zeros(n, dtype=torch.bool, device=dev)
         self._vad_host = (np.zeros(n, np.float32), np.zeros(n, bool))
         self._host_bufs = {}
         self._calls = 0
-        self._graph = None
-        self._graph_out = None
-        self._graph_launches = {}
-        self.capture_seconds = None
         self._inflight = None
         self._thread = None
         self._running = False
@@ -398,6 +455,32 @@ class ServingEngine:
         self.steps = 0
         self.last_step_seconds = 0.0
         self._step_times = collections.deque(maxlen=_STEP_TIME_HISTORY)
+
+    @staticmethod
+    def _shard_devices(device, sharding, capacity: int) -> tuple:
+        """The shards' devices: the one ``device`` (the card by default)
+        without ``sharding``, else the mesh's, ``device`` (when given) being
+        its first."""
+        if sharding is None:
+            return (kernels.resolve_device("cuda" if device is None else device,
+                                           "ServingEngine"),)
+        devices = mesh_devices(sharding, device, "ServingEngine")
+        if capacity % len(devices):
+            raise ValueError(f"capacity {capacity} does not split into "
+                             f"{len(devices)} equal shards")
+        return devices
+
+    @property
+    def capture_seconds(self):
+        """Seconds the shards' graph captures took, summed; None before
+        every shard has captured."""
+        secs = [sh.capture_seconds for sh in self._shards]
+        return None if None in secs else sum(secs)
+
+    def _shard_of(self, slot: int) -> tuple:
+        """(shard, the slot's row in it)."""
+        k, row = divmod(slot, self._rows_per_shard)
+        return self._shards[k], row
 
     # ------------------------------------------------------------- streams
     @property
@@ -505,13 +588,14 @@ class ServingEngine:
 
     def _gather(self, n_blocks: int) -> torch.Tensor:
         """Stage the next ``n_blocks`` blocks: apply pending slot resets,
-        staged EQ programs and control writes to the static buffers, and
-        fill a host buffer ``[n_blocks, N, BLOCK]`` with the slots' input
-        (two buffers in turn, so that a copy still in flight from the
-        previous call is never overwritten)."""
-        n = self.config.capacity
+        staged EQ programs and control writes to every shard's static
+        buffers, and fill a host buffer ``[S, n_blocks, N/S, BLOCK]`` with the
+        slots' input, shard by shard (two buffers in turn, so that a copy
+        still in flight from the previous call is never overwritten)."""
+        n, rows = self.config.capacity, self._rows_per_shard
         self._calls += 1
-        xh = self._host(f"x{self._calls % 2}", (n_blocks, n, BLOCK))
+        xh = self._host(f"x{self._calls % 2}",
+                        (len(self._shards), n_blocks, rows, BLOCK))
         x = xh.numpy()
         x.fill(0.0)
         active = np.zeros(n, bool)
@@ -522,118 +606,148 @@ class ServingEngine:
             # the staged program one step later
             for slot in [s for s in self._pending_eq if not reset[s]]:
                 fresh_eq = self._pending_eq.pop(slot)
-                for key, row in fresh_eq.items():
-                    self._state["chain"]["eq"][key][slot].copy_(row[0], non_blocking=True)
-            for i, s in enumerate(self._slots):
-                if not s.active:
-                    continue
-                active[i] = True
-                want = n_blocks * BLOCK
-                take = min(want, s.pending.size)
-                if take:
-                    got = s.pending[:take]
-                    s.pending = s.pending[take:]
-                    full, rem = divmod(take, BLOCK)
-                    for b in range(full):
-                        x[b, i] = got[b * BLOCK:(b + 1) * BLOCK]
-                    if rem:
-                        x[full, i, :rem] = got[full * BLOCK:]
-                if take < want:
-                    s.underruns += -(-(want - take) // BLOCK)
+                sh, row = self._shard_of(slot)
+                with device_scope(sh.device):
+                    for key, value in fresh_eq.items():
+                        sh._state["chain"]["eq"][key][row].copy_(value[0],
+                                                                 non_blocking=True)
+            want = n_blocks * BLOCK
+            # shard by shard, so that a slot costs one index as unsharded
+            for xk, lo in zip(x, range(0, n, rows)):
+                for r, s in enumerate(self._slots[lo:lo + rows]):
+                    if not s.active:
+                        continue
+                    active[lo + r] = True
+                    take = min(want, s.pending.size)
+                    if take:
+                        got = s.pending[:take]
+                        s.pending = s.pending[take:]
+                        full, rem = divmod(take, BLOCK)
+                        for b in range(full):
+                            xk[b, r] = got[b * BLOCK:(b + 1) * BLOCK]
+                        if rem:
+                            xk[full, r, :rem] = got[full * BLOCK:]
+                    if take < want:
+                        s.underruns += -(-(want - take) // BLOCK)
             if self._params_dirty:
-                _copy_host_tree(self._params_static, self._params)
+                for sh in self._shards:
+                    with device_scope(sh.device):
+                        _copy_host_tree(sh._params_static,
+                                        _host_rows(self._params, sh.lo, sh.hi))
                 self._params_dirty = False
-        if reset.any():
-            mask = torch.from_numpy(reset).to(self.device, non_blocking=True)
-            _copy_into(self._state,
-                       _masked_reset(self._state, self._fresh, mask, _SHARED))
-        if not np.array_equal(active, self._active_host):
-            self._active.copy_(torch.from_numpy(active), non_blocking=True)
-            self._active_host = active
+        for sh in self._shards:
+            with device_scope(sh.device):
+                if reset[sh.lo:sh.hi].any():
+                    mask = torch.from_numpy(reset[sh.lo:sh.hi]).to(sh.device,
+                                                                   non_blocking=True)
+                    _copy_into(sh._state,
+                               _masked_reset(sh._state, sh._fresh, mask, _SHARED))
+                mine = active[sh.lo:sh.hi]
+                if not np.array_equal(mine, sh._active_host):
+                    sh._active.copy_(torch.from_numpy(mine), non_blocking=True)
+                    sh._active_host = mine
         return xh
 
     def _stage_vad(self, prob, avail) -> None:
-        """Write the external VAD inputs into their static tensors when they
-        changed."""
+        """Write the external VAD inputs into the shards' static tensors when
+        they changed."""
         n = self.config.capacity
         prob = np.broadcast_to(np.zeros(n, np.float32) if prob is None
                                else np.asarray(prob, np.float32), (n,))
         avail = np.broadcast_to(np.zeros(n, bool) if avail is None
                                 else np.asarray(avail, bool), (n,))
-        if not np.array_equal(prob, self._vad_host[0]):
-            self._vad_prob.copy_(torch.from_numpy(prob.copy()), non_blocking=True)
-        if not np.array_equal(avail, self._vad_host[1]):
-            self._vad_avail.copy_(torch.from_numpy(avail.copy()), non_blocking=True)
+        for sh in self._shards:
+            lo, hi = sh.lo, sh.hi
+            with device_scope(sh.device):
+                if not np.array_equal(prob[lo:hi], self._vad_host[0][lo:hi]):
+                    sh._vad_prob.copy_(torch.from_numpy(prob[lo:hi].copy()),
+                                       non_blocking=True)
+                if not np.array_equal(avail[lo:hi], self._vad_host[1][lo:hi]):
+                    sh._vad_avail.copy_(torch.from_numpy(avail[lo:hi].copy()),
+                                        non_blocking=True)
         self._vad_host = (prob.copy(), avail.copy())
 
-    def _step_in_place(self, state):
-        """:func:`_serving_step` on the static inputs, its new state copied
-        into ``state``. Returns the block's ``(y, metrics)``."""
+    def _step_in_place(self, shard: _Shard, state):
+        """:func:`_serving_step` on a shard's static inputs, its new state
+        copied into ``state``. Returns the block's ``(y, metrics)``."""
         new_state, y, metrics = _serving_step(
-            self.config, self._params_dev, state, self._fresh, self._x,
-            self._active, None, self._vad_prob, self._vad_avail)
+            self.config, shard._params_dev, state, shard._fresh, shard._x,
+            shard._active, None, shard._vad_prob, shard._vad_avail)
         _copy_into(state, new_state)
         return y, metrics
 
-    def _capture(self) -> None:
-        """Capture :meth:`_step_in_place` on the static state as a CUDA
-        graph (``replay.capture_graph``: one eager warm-up step on a copy of
-        the state first creates what the step sets up lazily, the cached
-        device constants, the cuFFT plan, the cuBLAS workspace, the kernels'
-        attributes). The kernel launches the capture recorded are added to
-        ``kernels.launch_counts`` on every replay; the warm-up's and the
-        capture's own are not counted. A failed capture raises."""
+    def _capture(self, shard: _Shard) -> None:
+        """Capture :meth:`_step_in_place` on a shard's static state as a
+        CUDA graph (``replay.capture_graph``: one eager warm-up step on a
+        copy of the state first creates what the step sets up lazily, the
+        cached device constants, the cuFFT plan, the cuBLAS workspace, the
+        kernels' attributes). The kernel launches the capture recorded are
+        added to ``kernels.launch_counts`` on every replay; the warm-up's
+        and the capture's own are not counted. A failed capture raises."""
         with self._lock:
-            graph, out, self._graph_launches, self.capture_seconds = capture_graph(
-                self.device, self._step_in_place, self._state)
-            self._graph, self._graph_out = graph, out
+            graph, out, launches, seconds = capture_graph(
+                shard.device, lambda state: self._step_in_place(shard, state),
+                shard._state)
+            shard._graph, shard._graph_out = graph, out
+            shard._graph_launches, shard.capture_seconds = launches, seconds
 
-    def _run(self):
-        """Advance the static state by the block in the static inputs.
+    def _run(self, shard: _Shard):
+        """Advance a shard's static state by the block in its static inputs.
         Returns the block's ``(y, metrics)``, valid until the next run."""
-        if self.device.type != "cuda":
-            return self._step_in_place(self._state)
-        if self._graph is None:
-            self._capture()
-        self._graph.replay()
-        kernels.add_launches(self._graph_launches)
-        return self._graph_out
+        if shard.device.type != "cuda":
+            return self._step_in_place(shard, shard._state)
+        if shard._graph is None:
+            self._capture(shard)
+        shard._graph.replay()
+        kernels.add_launches(shard._graph_launches)
+        return shard._graph_out
 
-    def _advance(self, n_blocks: int, ext_vad_prob, ext_vad_avail):
-        """Run ``n_blocks`` blocks. Returns their output ``[n_blocks, N,
-        BLOCK]`` on the device and the last block's metrics."""
+    def _launch(self, n_blocks: int, ext_vad_prob, ext_vad_avail):
+        """Run ``n_blocks`` blocks on every shard and start copying their
+        output to a host buffer (two in turn): every shard's work is issued
+        before any is waited on. Returns what :meth:`_landed` waits on and
+        the last block's metrics."""
         xh = self._gather(n_blocks)
         self._stage_vad(ext_vad_prob, ext_vad_avail)
-        if n_blocks == 1:
-            self._x.copy_(xh[0], non_blocking=True)
-            y, metrics = self._run()
-            return y[None], _kept(metrics)
-        xs = xh.to(self.device, non_blocking=True)
-        ys = torch.empty_like(xs)
-        for b in range(n_blocks):
-            self._x.copy_(xs[b])
-            y, metrics = self._run()
-            ys[b].copy_(y)
-        return ys, _kept(metrics)
-
-    def _fetch(self, ys):
-        """Start copying ``ys`` to a host buffer (two in turn). Returns what
-        :meth:`_landed` waits on."""
-        buf = self._host(f"y{self._calls % 2}", tuple(ys.shape))
-        buf.copy_(ys, non_blocking=True)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-        return buf, done
+        yh = self._host(f"y{self._calls % 2}", tuple(xh.shape))
+        done, metrics = [], []
+        for k, sh in enumerate(self._shards):
+            with device_scope(sh.device):
+                if n_blocks == 1:
+                    sh._x.copy_(xh[k, 0], non_blocking=True)
+                    y, m = self._run(sh)
+                    yh[k, 0].copy_(y, non_blocking=True)
+                else:
+                    xs = xh[k].to(sh.device, non_blocking=True)
+                    ys = torch.empty_like(xs)
+                    for b in range(n_blocks):
+                        sh._x.copy_(xs[b])
+                        y, m = self._run(sh)
+                        ys[b].copy_(y)
+                    yh[k].copy_(ys, non_blocking=True)
+                metrics.append(_kept(m))
+                if sh.device.type == "cuda":
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
+        if len(metrics) == 1:
+            return (yh, done), metrics[0]
+        with device_scope(self.device):
+            joined = {key: torch.cat([m[key].to(self.device) for m in metrics])
+                      for key in metrics[0]}
+        return (yh, done), joined
 
     @staticmethod
     def _landed(fetch) -> np.ndarray:
-        """The fetched blocks as a new host array (sinks may keep views)."""
+        """The fetched blocks ``[n_blocks, N, BLOCK]`` as a new host array
+        (sinks may keep views)."""
         buf, done = fetch
-        if done is not None:
-            done.synchronize()
-        return buf.numpy().copy()
+        for event in done:
+            event.synchronize()
+        y = buf.numpy()
+        S, nb, rows, _ = y.shape
+        out = np.empty((nb, S * rows, BLOCK), np.float32)
+        out.reshape(nb, S, rows, BLOCK)[...] = y.transpose(1, 0, 2, 3)  # one copy
+        return out
 
     def _record_time(self, t0: float, n_blocks: int) -> None:
         self.steps += n_blocks
@@ -643,8 +757,8 @@ class ServingEngine:
     def step(self, ext_vad_prob=None, ext_vad_avail=None):
         """Advance every stream by one block. Returns per-slot metrics."""
         t0 = time.perf_counter()
-        ys, metrics = self._advance(1, ext_vad_prob, ext_vad_avail)
-        self._deliver(self._landed(self._fetch(ys)), 1)
+        fetch, metrics = self._launch(1, ext_vad_prob, ext_vad_avail)
+        self._deliver(self._landed(fetch), 1)
         self._last_metrics = metrics
         self._record_time(t0, 1)
         return metrics
@@ -658,8 +772,7 @@ class ServingEngine:
         the last block. Returns the delivered block's metrics, or None on
         the first call."""
         t0 = time.perf_counter()
-        ys, metrics = self._advance(1, ext_vad_prob, ext_vad_avail)
-        launched = (self._fetch(ys), metrics)
+        launched = self._launch(1, ext_vad_prob, ext_vad_avail)
         delivered = None
         if self._inflight is not None:
             delivered = self._land(self._inflight)
@@ -688,8 +801,8 @@ class ServingEngine:
         if n_blocks < 1:
             raise ValueError("n_blocks must be >= 1")
         t0 = time.perf_counter()
-        ys, metrics = self._advance(n_blocks, ext_vad_prob, ext_vad_avail)
-        self._deliver(self._landed(self._fetch(ys)), n_blocks)
+        fetch, metrics = self._launch(n_blocks, ext_vad_prob, ext_vad_avail)
+        self._deliver(self._landed(fetch), n_blocks)
         self._last_metrics = metrics
         self._record_time(t0, n_blocks)
         return metrics
@@ -784,6 +897,22 @@ class ServingEngine:
                        p99_ms=float(np.percentile(times_ms, 99)),
                        max_ms=float(times_ms.max()))
         return out
+
+    def shard_diagnostics(self) -> dict:
+        """The shards' devices, each shard's graph capture seconds and kernel
+        launches a replay, and both summed over the shards (a block is one
+        replay of each). ``engine_diagnostics`` keeps the reference's keys."""
+        launches = collections.Counter()
+        for sh in self._shards:
+            launches.update(sh._graph_launches)
+        return {
+            "shards": len(self._shards),
+            "devices": [str(sh.device) for sh in self._shards],
+            "capture_seconds": self.capture_seconds,
+            "shard_capture_seconds": [sh.capture_seconds for sh in self._shards],
+            "launches_per_block": dict(launches),
+            "shard_launches_per_block": [dict(sh._graph_launches) for sh in self._shards],
+        }
 
     def engine_diagnostics(self) -> dict:
         return {

@@ -1,7 +1,7 @@
 """On-card smoke test of audioforge_tpu_torch (needs one CUDA GPU).
 
 Run from the root of the repository: ``python3 chip_smoke.py``. Phases, in
-the order they run ([8]-[10] after [4], [11]-[13] last), each of which stops the script with
+the order they run ([8]-[10] after [4], [11]-[14] last), each of which stops the script with
 a non-zero exit when it fails, and each followed by its wall-clock time:
 
 0. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -29,15 +29,17 @@ a non-zero exit when it fails, and each followed by its wall-clock time:
    ``torch._VF.lstm_cell`` beside vad_lstm_head; then, as information, the time per call of both limiter stages and of the three
    block-level torch stages that have no kernel yet (limiter window max,
    true-peak polyphase FIR, hum oscillator bank), the first two with their
-   bound and the time of the one PyTorch call that computes each;
+   bound and the time of the one PyTorch call that computes each, and the
+   bound of the hum oscillator bank, the block reductions and the RNNoise
+   frame at fleet 1024 beside their time on the card;
 3. default path: the serving engine at fleet 1024 (RNNoise + default live
    chain), whose first step captures its CUDA graph (capture time, nodes,
    kernel launches per replay), then 5 x step() and step_many(10) with the
    launch counts read over those 15 blocks: finite output within the limiter
    ceiling, and every on-path kernel launched its expected count per block;
    then, as information, a layer split (the eager step on copies of the
-   engine's buffers), 1,000 step() calls (p50, p99, max), step_many spans,
-   1,000 step_pipelined() calls, the replay alone on the card, the graph's
+   engine's buffers), 600 step() calls (p50, p99, max), step_many spans,
+   600 step_pipelined() calls, the replay alone on the card, the graph's
    state copy-back and the peak device memory;
 4. full live chain: the engine at fleet 1024 with strong cleanup and the
    de-esser for 60 blocks (two hum windows complete): launches per block,
@@ -99,7 +101,20 @@ a non-zero exit when it fails, and each followed by its wall-clock time:
    captures, stall and memory); then the VAD worker's window graph alone
    (its replay on the card, host ms per window: information) and (d) the
    seeded control storm of ``runtime/stress_harness.py`` (120 blocks,
-   bounded output).
+   bounded output);
+14. sharded preset fleet: the voice preset's serving topology at fleet 1024
+   with the builtin presets of that topology round-robin over the streams,
+   60 blocks of mic_capture audio, unsharded and over fleet meshes of 2 and
+   4 shards on the one card: audio within 1e-4 RMS / 1e-3 max of the
+   unsharded run, launches a block exactly the shard count times the
+   unsharded engine's, each shard's replay alone and all of them (CUDA
+   events), step() p50/p99 over 200 calls, step_many(50) per block, peak
+   memory; 8 streams over 2 shards on the card against 2 on the CPU (1e-3
+   RMS); the 68-candidate sweep with a 2-shard mesh against none (1e-5);
+   ``dryrun_multichip(2)`` on the card; ``python -m audioforge_tpu_torch run
+   --preset`` as a subprocess (exit 0) and ``capture_preset`` after
+   ``apply_preset`` equal to the preset. Several cards are not run: the
+   machine has one.
 
 Phase [2] also holds the kernels at the offline path's own shapes (one
 stream of 882 samples at 44.1 kHz, the live EQ's 4800-sample blocks through
@@ -109,7 +124,7 @@ stream of 882 samples at 44.1 kHz, the live EQ's 4800-sample blocks through
 The line before the last is a JSON object with every kernel's launches (on
 the full-chain run; the model stages' kernels on their own paths' runs,
 the DeepFilterNet3 kernels summed over [9] and [10]; plus each kernel's
-launches in [13](a) and the VAD worker's in [13](b)), error against its twin (the worst over its
+launches in [13](a), the VAD worker's in [13](b) and the fleets' in [14]), error against its twin (the worst over its
 configurations), times and bound (of its first configuration); the last
 line is ``{"ok": true, "device": {...}}``. compare_kernels.py times the
 kernels of two checkouts on phase [2]'s inputs (:func:`timed_calls`).
@@ -154,7 +169,7 @@ NO_SPILL_KERNELS = ("env_scan_kernel", "biquad_cascade_kernel", "deesser_scan_ke
                     "vad_front_kernel", "vad_lstm_head_kernel", "dfn_features_kernel",
                     "dfn_spec_synth_kernel")
 CHUNKED_BLOCK = 2 * BLOCK   # every tiled kernel but biquad_cascade runs it as two chunks
-TIMED_CALLS = 1000          # step() and step_pipelined() calls timed per path: ten beyond the p99
+TIMED_CALLS = 600           # step() and step_pipelined() calls timed per path: six beyond the p99
 TIMED_SPAN = 50             # blocks of audio queued at a time while timing; step_many's span
 MODEL_TIMED_CALLS = 200     # step() and step_pipelined() calls timed on the model paths [8]-[10]
 MODEL_BLOCKS = 16           # blocks a model path runs before its timing (VAD warm after 4)
@@ -193,6 +208,13 @@ def kernel_times(fn, reps: int = 20):
     calls back to back, so it includes that cost where the kernel is
     shorter)."""
     call_ms = cuda_ms(fn, reps)
+    # a warm-up on a side stream first, as the capture's stream needs its own
+    # library state (cuBLAS workspace) before it is captured
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
@@ -1072,6 +1094,74 @@ def phase2_torch_stages(card: str) -> None:
         print(f"[2] torch stage (info, {card}): {name}: {call} {lib_ms:.4f} ms on the card "
               f"(max_abs_err against the stage's own arithmetic {err:.2e}); bound "
               f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+    phase2_stage_bounds(card, xb, st, omegas, boundary)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def phase2_stage_bounds(card: str, xb, st, omegas, boundary) -> None:
+    """Information: the bound of the three torch stages that have no kernel
+    yet, at fleet 1024, beside their time on the card (a CUDA graph of 20
+    calls, replayed) and their calls per block. The hum oscillator bank:
+    its input and output once, and ten f32 operations per stream, bin and
+    sample (the two multiply-adds of the I and Q sums, and the oscillator's
+    advance as a complex rotation in place of a sine and a cosine). The
+    block reductions (input sanitize and meters, output sanitize and
+    meters, four calls a block): each call reads its block once and the
+    sanitizers write it once; three operations a sample each. The RNNoise
+    frame: its weights, its state in and out, the frame in and out, and the
+    multiply-adds of its GEMMs and convolutions as
+    ``torch.utils.flop_counter`` counts them (the elementwise work
+    left out, so the bound stays a least time). No single PyTorch call
+    computes any of the three."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from audioforge_tpu_torch.models import rnnoise
+    from audioforge_tpu_torch.ops import routing
+
+    n, T = xb.shape
+    ceiling = torch.full((n,), 0.8, device=DEVICE)
+    acc = torch.zeros(n, device=DEVICE)
+    coeff = torch.tensor(float(np.exp(-1.0 / (0.3 * FS))), device=DEVICE)
+    weights = rnnoise.load_weights(rnnoise.discover_model_path(), DEVICE)
+    state = rnnoise.rnnoise_state_init(n=n, device=DEVICE)
+    pcm = torch.clamp(rnnoise.soft_clip(xb) * rnnoise.PCM_SCALE, -rnnoise.PCM_MODEL_LIMIT,
+                      rnnoise.PCM_MODEL_LIMIT)
+
+    def reductions():
+        y, _, _ = routing.sanitize_and_clamp_input(xb)
+        routing.meter_block_stats(y, acc, coeff)
+        z, _, _ = routing.sanitize_and_clamp_output(y, ceiling)
+        routing.meter_block_stats(z, acc, coeff)
+
+    with FlopCounterMode(display=False) as counter:
+        new_state, y, aux = rnnoise.rnnoise_frame(weights, state, pcm)
+    rnnoise_flops = counter.get_total_flops()
+    sample_bytes = 4 * n * T
+    stages = (
+        ("hum oscillator bank", "1 per full-chain block, 0 on the default and preset paths",
+         lambda: routing._hum_bank(st["bin_phase"], omegas, boundary, xb),
+         bound(sample_bytes + 4 * st["bin_phase"].numel() + 4 * n + 4 * n * (4 * 26 + 2),
+               f32_ops=10.0 * n * 26 * T)),
+        ("block reductions", "4 per block on every path (2 sanitizers, 2 meters)",
+         reductions,
+         bound(6 * sample_bytes + 4 * n * 16, f32_ops=4 * 3.0 * n * T)),
+        ("RNNoise frame", "1 per block on the RNNoise paths",
+         lambda: rnnoise.rnnoise_frame(weights, state, pcm),
+         bound(_tree_bytes(weights) + _tree_bytes(state) + _tree_bytes(new_state)
+               + 2 * sample_bytes + _tree_bytes(aux), f32_ops=rnnoise_flops)),
+    )
+    for name, calls, fn, (bound_ms, bound_by) in stages:
+        device_ms, eager_ms = kernel_times(fn)
+        print(f"[2] torch stage bound (info, {card}): {name} [{n}, {T}]: {device_ms:.4f} ms "
+              f"on the card, eager {eager_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}); "
+              f"{calls}; library call none", flush=True)
 
 
 def voice_and_noise(n: int, n_blocks: int, seed: int) -> np.ndarray:
@@ -1343,8 +1433,8 @@ def graph_nodes(graph) -> dict:
 
 def print_capture(eng, card: str, tag: str) -> None:
     print(f"{tag} step graph (info, {card}): captured in {eng.capture_seconds:.3f} s at the "
-          f"first step, {graph_nodes(eng._graph)}; kernel launches per replay "
-          f"{eng._graph_launches}", flush=True)
+          f"first step, {graph_nodes(eng._shards[0]._graph)}; kernel launches per replay "
+          f"{eng._shards[0]._graph_launches}", flush=True)
 
 
 def feed(eng, audio: np.ndarray) -> None:
@@ -1388,10 +1478,11 @@ def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str,
               f"{FLEET} (p50) {rate(h['p50_ms']):.1f}", flush=True)
     # where step()'s host time goes: the engine's stages on the host clock
     # over TIMED_CALLS / 5 more calls (no synchronise added; "wait + copy" is the wait
-    # for the card's copy of the block and the copy the sinks keep)
+    # for the card's copy of the block and the copy the sinks keep; the rest holds the
+    # copies' launches and the metrics' copies)
     split, calls = collections.Counter(), max(1, n_timed // 5)
     stages = {"gather": "_gather", "VAD staging": "_stage_vad", "replay launch": "_run",
-              "fetch": "_fetch", "wait + copy": "_landed", "sinks": "_deliver"}
+              "wait + copy": "_landed", "sinks": "_deliver"}
 
     def timed(label, fn):
         def call(*args):
@@ -1413,22 +1504,18 @@ def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str,
     print(f"{tag} step() host split, mean ms of {calls} calls (info, {card}): total "
           f"{total_ms:.3f}: {parts}, the rest "
           f"{total_ms - sum(split.values()) / calls * 1e3:.3f}", flush=True)
-    replay_ms = cuda_ms(eng._graph.replay, 50)
+    replay_ms = cuda_ms(eng._shards[0]._graph.replay, 50)
     REPLAY_MS[tag] = replay_ms
     # the copy-back alone: a graph of _copy_into on the pairs one eager step
     # gives, on copies of the state
-    state = sv._clone_tree(eng._state)
-    new_state, _, _ = sv._serving_step(eng.config, eng._params_dev, state, eng._fresh,
-                                       eng._x, eng._active, None, eng._vad_prob,
-                                       eng._vad_avail)
+    state = sv._clone_tree(eng._shards[0]._state)
+    new_state, _, _ = eager_step(eng, state)
     pairs = len(sv._leaf_pairs(state, new_state, []))
     copy_ms, _ = kernel_times(lambda: sv._copy_into(state, new_state))
     # the same step eagerly, back to back on a copy of the state (the
     # per-block work of the step before it was captured, without staging
     # and sinks)
-    eager_ms = cuda_ms(lambda: sv._serving_step(
-        eng.config, eng._params_dev, state, eng._fresh, eng._x, eng._active, None,
-        eng._vad_prob, eng._vad_avail), 10)
+    eager_ms = cuda_ms(lambda: eager_step(eng, state), 10)
     print(f"{tag} replay alone on the card (info, {card}): {replay_ms:.3f} ms per block, "
           f"{rate(replay_ms):.1f} audio-sec/sec; the state copy-back ({pairs} leaves) "
           f"{copy_ms:.4f} ms of it; the eager step {eager_ms:.3f} ms per block; peak "
@@ -1489,7 +1576,7 @@ def phase4_full_chain(card: str) -> dict:
     cls = np.arange(FLEET) % 4
     hum = m["routing_hum_detected"].cpu().numpy()
     red = m["deesser_gain_reduction_db"].cpu().numpy()
-    windows = eng._state["chain"]["routing"]["windows_observed"].cpu().numpy()
+    windows = eng._shards[0]._state["chain"]["routing"]["windows_observed"].cpu().numpy()
     print(f"[4] hum detected on {hum[cls == 0].mean():.3f} of the 50.4 Hz streams, "
           f"{hum[cls == 1].mean():.3f} of the 59.7 Hz streams, {hum[cls >= 2].mean():.3f} "
           f"of the others; de-esser reduction > 0 on {(red[cls == 2] > 0).mean():.3f} of "
@@ -1623,14 +1710,13 @@ def layer_split(eng, card: str, tag: str) -> None:
             return out
         return run
 
-    state = sv._clone_tree(eng._state)
+    state = sv._clone_tree(eng._shards[0]._state)
     for (mod, name), fn in originals.items():
         setattr(mod, name, timed(name, fn))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sv._serving_step(eng.config, eng._params_dev, state, eng._fresh, eng._x,
-                         eng._active, None, eng._vad_prob, eng._vad_avail)
+        eager_step(eng, state)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
@@ -1676,14 +1762,13 @@ def card_split(eng, card: str, tag: str) -> None:
                 return fn(*args, **kwargs)
         return run
 
-    state = sv._clone_tree(eng._state)
+    state = sv._clone_tree(eng._shards[0]._state)
     for (mod, name, label), (_, _, fn) in zip(stages, originals):
         setattr(mod, name, ranged(label, fn))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            sv._serving_step(eng.config, eng._params_dev, state, eng._fresh, eng._x,
-                             eng._active, None, eng._vad_prob, eng._vad_avail)
+            eager_step(eng, state)
             torch.cuda.synchronize()
     finally:
         for mod, name, fn in originals:
@@ -1730,7 +1815,7 @@ def phase5_card_vs_cpu() -> None:
             vad[device] = (m["vad_probability"].cpu().numpy(),
                            m["vad_available"].cpu().numpy())
             ys[device] = np.stack([np.concatenate(o) for o in outs])
-            model = eng._state["supp"]["model"]
+            model = eng._shards[0]._state["supp"]["model"]
             periods[device] = (model["last_period"].cpu().numpy() if "last_period" in model
                                else np.zeros(0))
             norms[device] = (model["erb_norm"].cpu().numpy() if "erb_norm" in model
@@ -1817,7 +1902,8 @@ def phase6_profile(card: str) -> None:
         print(f"[6] {name} ({card}): {launches:.0f} CUDA kernels per step() (graph "
               f"replay); kernel time {busy_s / 3 * 1e3:.2f} ms of {wall / 3 * 1e3:.2f} ms "
               f"per profiled step, busy share {busy_s / wall:.3f}; the replay alone "
-              f"{cuda_ms(eng._graph.replay, 20):.3f} ms on the card (CUDA events)", flush=True)
+              f"{cuda_ms(eng._shards[0]._graph.replay, 20):.3f} ms on the card (CUDA events)",
+              flush=True)
         for e in rows[:12]:
             print(f"    {e.self_device_time_total / 3e3:8.3f} ms/step {e.count // 3:6d}x  "
                   f"{e.key[:90]}")
@@ -1827,6 +1913,15 @@ def phase6_profile(card: str) -> None:
         for e in own:
             print(f"    {e.self_device_time_total / 3e3:8.4f} ms/step {e.count // 3:6d}x  "
                   f"{e.key[:60]}")
+
+
+def eager_step(eng, state, mask=None):
+    """An unsharded engine's step run eagerly on ``state``, with its one
+    shard's static inputs: ``(state, y, metrics)``."""
+    from audioforge_tpu_torch.runtime import serving as sv
+    sh = eng._shards[0]
+    return sv._serving_step(eng.config, sh._params_dev, state, sh._fresh, sh._x, sh._active,
+                            mask, sh._vad_prob, sh._vad_avail)
 
 
 def _tree_diff(a: dict, b: dict, path: str = "") -> list:
@@ -1896,7 +1991,7 @@ def phase7_graph_vs_eager(card: str) -> None:
             eng.set_stream_eq(13, boost)
 
     eng, outs = build()
-    ref = sv._clone_tree(eng._state)
+    ref = sv._clone_tree(eng._shards[0]._state)
     apart = []
     t0 = time.perf_counter()
     for b in range(FULL_BLOCKS):
@@ -1909,14 +2004,13 @@ def phase7_graph_vs_eager(card: str) -> None:
             for k, row in tree.items():
                 ref["chain"]["eq"][k][slot] = row[0].to(DEVICE)
         mask = torch.from_numpy(reset).to(DEVICE) if reset.any() else None
-        ref, y_ref, _ = sv._serving_step(eng.config, eng._params_dev, ref, eng._fresh, eng._x,
-                                         eng._active, mask, eng._vad_prob, eng._vad_avail)
-        y = eng._graph_out[0]
+        ref, y_ref, _ = eager_step(eng, ref, mask)
+        y = eng._shards[0]._graph_out[0]
         if not torch.equal(y, y_ref):
             apart.append((b, (y - y_ref).abs().max().item()))
     torch.cuda.synchronize()
-    state_apart = _tree_diff(ref, eng._state)
-    eq_rows = eng._state["chain"]["eq"]["coeffs"]
+    state_apart = _tree_diff(ref, eng._shards[0]._state)
+    eq_rows = eng._shards[0]._state["chain"]["eq"]["coeffs"]
     print(f"[7] graph against eager, full chain at fleet {FLEET}, {FULL_BLOCKS} blocks with "
           f"attach, reset, control, suppressor and EQ writes ({time.perf_counter() - t0:.1f} "
           f"s, {card}): blocks whose y differs {apart}; state leaves that differ "
@@ -1933,7 +2027,7 @@ def phase7_graph_vs_eager(card: str) -> None:
     kept = range(FLEET - late)
     same = all(np.array_equal(np.concatenate(pipe_outs[i]), np.concatenate(outs[i]))
                for i in kept)
-    state_apart = _tree_diff(pipe._state, eng._state)
+    state_apart = _tree_diff(pipe._shards[0]._state, eng._shards[0]._state)
     print(f"[7] step_pipelined + flush_pipeline against step(): {len(kept)} streams "
           f"{'equal' if same else 'DIFFER'} over {FULL_BLOCKS} blocks; state leaves that "
           f"differ {state_apart}", flush=True)
@@ -1958,7 +2052,7 @@ def phase7_dfn_graph_vs_eager(card: str) -> None:
     t0 = time.perf_counter()
     audio = voice_and_noise(FLEET, DFN_EAGER_BLOCKS, 34)
     eng, outs = _engine(FLEET, DEVICE, audio, **MODEL_PATHS["DFN3-LL"][0])
-    ref = sv._clone_tree(eng._state)
+    ref = sv._clone_tree(eng._shards[0]._state)
     apart, worst = [], 0.0
     for b in range(DFN_EAGER_BLOCKS):
         if b == 8:
@@ -1968,18 +2062,17 @@ def phase7_dfn_graph_vs_eager(card: str) -> None:
         reset = eng._reset_pending.copy()
         eng.step()
         mask = torch.from_numpy(reset).to(DEVICE) if reset.any() else None
-        ref, y_ref, _ = sv._serving_step(eng.config, eng._params_dev, ref, eng._fresh, eng._x,
-                                         eng._active, mask, eng._vad_prob, eng._vad_avail)
-        y = eng._graph_out[0]
+        ref, y_ref, _ = eager_step(eng, ref, mask)
+        y = eng._shards[0]._graph_out[0]
         if not torch.equal(y, y_ref):
             apart.append(b)
             worst = max(worst, (y - y_ref).abs().max().item())
     torch.cuda.synchronize()
-    leaves = _tree_diff(ref, eng._state)
+    leaves = _tree_diff(ref, eng._shards[0]._state)
     flat = lambda t, path: t if not path else flat(t[path[0]], path[1:])
     for leaf in leaves:
         path = leaf.strip(".").split(".")
-        a, b = flat(ref, path), flat(eng._state, path)
+        a, b = flat(ref, path), flat(eng._shards[0]._state, path)
         worst = max(worst, (a.double() - b.double()).abs().max().item())
     print(f"[7] graph against eager, DFN3-LL at fleet {FLEET}, {DFN_EAGER_BLOCKS} blocks with a "
           f"slot reset ({time.perf_counter() - t0:.1f} s, {card}): blocks whose y differs "
@@ -2875,6 +2968,232 @@ def phase13_live_engine(card: str) -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# The sharded preset fleet, the sharded sweep, the dry run and run --preset: [14]
+# ---------------------------------------------------------------------------
+
+FLEET_BLOCKS = 60             # [14]: blocks of mic_capture audio through each engine
+FLEET_SHARDS = (1, 2, 4)      # shards of the fleet, all on the one card
+FLEET_TIMED_CALLS = 200       # step() calls timed on each engine
+FLEET_CPU_STREAMS = 8         # card against CPU
+FLEET_CPU_BLOCKS = 10
+FLEET_PATH = {"biquad_cascade": 5, "limiter_gain_scan": 2, "compressor_scan": 1,
+              "gate_scan": 1}  # launches a block of one shard on the voice preset's path
+PRESET_RUN_S = 3.0            # run --preset's duration
+
+
+def preset_fleet_engine(capacity: int, audio: np.ndarray, **where):
+    """The voice preset's serving topology at ``capacity`` streams, the
+    builtin presets that share it round-robin over the slots, ``audio
+    [capacity, samples]`` queued; ``where``: ``device=`` or ``sharding=``.
+    Returns ``(engine, sink lists, the presets used)``."""
+    from audioforge_tpu_torch import BUILTIN_PRESETS
+    from audioforge_tpu_torch.runtime.preset_io import (apply_preset_to_stream,
+                                                        serving_config_for_preset)
+    from audioforge_tpu_torch.runtime.serving import ServingEngine
+
+    cfg = serving_config_for_preset(BUILTIN_PRESETS["voice"], capacity=capacity)
+    eng = ServingEngine(cfg, **where)
+    probe = ServingEngine(serving_config_for_preset(BUILTIN_PRESETS["voice"], capacity=1),
+                          device="cpu")
+    probe.attach()
+    names = [k for k, pr in BUILTIN_PRESETS.items() if not apply_preset_to_stream(probe, 0, pr)]
+    outs = [[] for _ in range(capacity)]
+    for i in range(capacity):
+        slot = eng.attach(sink=lambda blk, i=i: outs[i].append(blk))
+        check(not apply_preset_to_stream(eng, slot, BUILTIN_PRESETS[names[i % len(names)]]),
+              "a preset of the voice topology warned")
+        eng.push(slot, audio[i])
+    return eng, outs, names
+
+
+def _fleet_timing(eng, outs, audio: np.ndarray) -> dict:
+    """step() p50/p99 over FLEET_TIMED_CALLS calls and step_many(TIMED_SPAN)
+    per block (host clock, ``latency_histogram``); the audio is queued again
+    every TIMED_SPAN blocks, outside the timed calls."""
+    def run(call, n_calls: int, blocks: int) -> dict:
+        eng._step_times.clear()
+        for i in range(n_calls):
+            if i * blocks % TIMED_SPAN == 0:
+                for o in outs:
+                    o.clear()
+                feed(eng, audio)
+            call()
+        torch.cuda.synchronize()
+        return eng.latency_histogram()
+
+    step = run(eng.step, FLEET_TIMED_CALLS, 1)
+    many = run(lambda: eng.step_many(TIMED_SPAN), 4, TIMED_SPAN)
+    return {"step_p50": step["p50_ms"], "step_p99": step["p99_ms"],
+            "many_p50": many["p50_ms"]}
+
+
+def phase14_sharded_fleet(card: str) -> dict:
+    """[14] (a) the voice preset's fleet at 1024 streams (the builtin presets
+    of its topology round-robin, mic_capture audio, FLEET_BLOCKS blocks)
+    unsharded and over fleet meshes of 2 and 4 shards on the one card: the
+    audio against the unsharded run (1e-4 RMS, 1e-3 max), the launches per
+    block exactly the shard count times the unsharded engine's, each shard's
+    replay alone and all of them back to back (CUDA events), step() p50/p99,
+    step_many per block and the peak memory; (b) 8 streams over 2 shards on
+    the card against 2 shards on the CPU (1e-3 RMS, as [5] holds); (c) the
+    68-candidate sweep with a 2-shard mesh against none (1e-5 on every
+    float); (d) ``dryrun_multichip(2)`` on the card; (e) ``run --preset`` as
+    a subprocess on the card, and ``capture_preset`` after ``apply_preset``
+    equal to the preset. Returns the launches of (a)'s runs."""
+    import os
+    import tempfile
+
+    from audioforge_tpu_torch import BUILTIN_PRESETS, api, kernels, save_preset
+    from audioforge_tpu_torch.parallel import dryrun_multichip, fleet_mesh
+    from audioforge_tpu_torch.runtime.preset_io import apply_preset, capture_preset
+    from audioforge_tpu_torch.runtime.processor import AudioProcessor
+
+    audio = mic_capture(FLEET, FLEET_BLOCKS, 41)
+    total = collections.Counter()
+    ref, per_block = None, None
+    for shards in FLEET_SHARDS:
+        where = ({"device": DEVICE} if shards == 1 else
+                 {"sharding": fleet_mesh(devices=[f"{DEVICE}:0"] * shards)})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # earlier phases' tensors, not the fleet's
+        t0 = time.perf_counter()
+        eng, outs, names = preset_fleet_engine(FLEET, audio, **where)
+        eng.step()  # captures every shard's graph
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        for _ in range(9):
+            eng.step()
+        eng.step_many(FLEET_BLOCKS - 10)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)
+        total.update(counts)
+        peak = _check_output(outs, FLEET_BLOCKS, FLEET)
+        y = np.stack([np.concatenate(o) for o in outs])
+        blocks = FLEET_BLOCKS - 1
+        got = {k: v / blocks for k, v in counts.items()}
+        _check_per_block(counts, {k: v * shards for k, v in FLEET_PATH.items()}, blocks,
+                         f"{shards}-shard fleet")
+        summed = eng.shard_diagnostics()["launches_per_block"]
+        check({k: v for k, v in got.items() if v} == {k: float(v) for k, v in summed.items()},
+              f"shard_diagnostics launches {summed} are not the counted {got}")
+        if ref is None:
+            ref, per_block = y, got
+            err_rms = err_max = 0.0
+        else:
+            check(got == {k: v * shards for k, v in per_block.items()},
+                  f"{shards} shards launch {got} a block, not {shards} x {per_block}")
+            diff = y.astype(np.float64) - ref
+            err_rms, err_max = float(np.sqrt(np.mean(diff ** 2))), float(np.abs(diff).max())
+            check(err_rms <= 1e-4 and err_max <= 1e-3,
+                  f"{shards}-shard fleet differs from the unsharded one: RMS {err_rms:.3e}, "
+                  f"max {err_max:.3e}")
+        replays = [cuda_ms(sh._graph.replay, 50) for sh in eng._shards]
+        together = cuda_ms(lambda: [sh._graph.replay() for sh in eng._shards], 50)
+        times = _fleet_timing(eng, outs, audio)
+        mem = (torch.cuda.max_memory_allocated() - held) / 2**20
+        print(f"[14] preset fleet at {FLEET}, {shards} shard(s) on {DEVICE}:0 ({card}): "
+              f"presets {names}; built and first step {build_s:.2f} s (captures "
+              f"{eng.capture_seconds:.3f} s); launches a block {got}; peak {peak:.4f}; against "
+              f"unsharded RMS {err_rms:.3e} max {err_max:.3e} (bit-equal "
+              f"{bool(np.array_equal(y, ref))}); each shard's replay alone "
+              f"{', '.join(f'{r:.3f}' for r in replays)} ms, all shards back to back "
+              f"{together:.3f} ms; step() p50 {times['step_p50']:.3f} ms p99 "
+              f"{times['step_p99']:.3f} ms over {FLEET_TIMED_CALLS}; step_many({TIMED_SPAN}) "
+              f"{times['many_p50']:.3f} ms per block; peak device memory {mem:.0f} MiB above the "
+              f"{held / 2**20:.0f} MiB held before the engine",
+              flush=True)
+        del eng, outs
+
+    # (b) card against CPU, both sharded
+    small = mic_capture(FLEET_CPU_STREAMS, FLEET_CPU_BLOCKS, 42)
+    ys = {}
+    t0 = time.perf_counter()
+    for dev in (f"{DEVICE}:0", "cpu"):
+        eng, outs, _ = preset_fleet_engine(FLEET_CPU_STREAMS, small,
+                                           sharding=fleet_mesh(devices=[dev] * 2))
+        eng.step_many(FLEET_CPU_BLOCKS)
+        ys[dev] = np.stack([np.concatenate(o) for o in outs])
+    diff = ys[f"{DEVICE}:0"].astype(np.float64) - ys["cpu"]
+    rms = float(np.sqrt(np.mean(diff ** 2)))
+    cpu_rms = float(np.sqrt(np.mean(ys["cpu"].astype(np.float64) ** 2)))
+    print(f"[14] card against CPU, {FLEET_CPU_STREAMS} streams over 2 shards, "
+          f"{FLEET_CPU_BLOCKS} blocks: RMS diff {rms:.3e} (tol 1e-3), max "
+          f"{np.abs(diff).max():.3e}, output RMS {cpu_rms:.3e} (at least "
+          f"{LIVE_MIN_RMS:g}); {time.perf_counter() - t0:.1f} s", flush=True)
+    check(rms <= 1e-3, "the sharded fleet differs between the card and the CPU")
+    check(cpu_rms >= LIVE_MIN_RMS, f"the CPU fleet's output RMS {cpu_rms:.3e} is too "
+          "small to compare against")
+
+    # (c) the 68-candidate sweep, 2 shards against none
+    rng = np.random.default_rng(12)
+    cands = [{"threshold_db": float(t), "ratio": float(r), "attack_ms": float(a),
+              "release_ms": float(rel)} for t, r, a, rel in zip(
+        rng.uniform(-40, -10, SIM_CANDIDATES), rng.uniform(1.5, 8, SIM_CANDIDATES),
+        rng.uniform(1, 30, SIM_CANDIDATES), rng.uniform(40, 400, SIM_CANDIDATES))]
+    take = sim_take(FS, SIM_SECONDS, 90)
+    bands = [(80.0, -2.0, 1.0), (160.0, 0.0, 1.41), (320.0, 1.5, 1.0), (640.0, 0.0, 1.41),
+             (1280.0, 2.0, 1.41), (2500.0, 0.0, 1.41), (5000.0, -1.5, 2.0),
+             (8000.0, 0.0, 1.41), (12000.0, 0.0, 1.41), (16000.0, 1.0, 0.7)]
+    mesh = fleet_mesh(devices=[f"{DEVICE}:0"] * 2)
+    sweeps, secs = {}, {}
+    for label, kw in (("none", {"device": DEVICE}), ("2 shards", {"mesh": mesh})):
+        api.simulate_auto_eq_chain_batched(take, 48000, bands, None, cands, **kw)
+        t0 = time.perf_counter()
+        sweeps[label] = api.simulate_auto_eq_chain_batched(take, 48000, bands, None, cands,
+                                                           **kw)
+        secs[label] = time.perf_counter() - t0
+    worst = max(abs(float(a[k]) - float(b[k])) for a, b in zip(sweeps["none"], sweeps["2 shards"])
+                for k in a if isinstance(a[k], float) and not k.endswith("runtime_ms"))
+    check(len(sweeps["2 shards"]) == SIM_CANDIDATES, "the sharded sweep lost candidates")
+    print(f"[14] sweep of {SIM_CANDIDATES} candidates on a {SIM_SECONDS:g} s take: unsharded "
+          f"{secs['none']:.3f} s, 2 shards {secs['2 shards']:.3f} s; max difference "
+          f"{worst:.3e} (tol 1e-5) ({card})", flush=True)
+    check(worst <= 1e-5, "the sharded sweep differs from the unsharded one")
+
+    # (d) the dry run
+    t0 = time.perf_counter()
+    corpus = dryrun_multichip(2, devices=[f"{DEVICE}:0"] * 2)
+    print(f"[14] dryrun_multichip(2) on the card: {corpus}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) run --preset on the card, and the preset's round trip
+    preset = BUILTIN_PRESETS["aggressive_denoise"]
+    proc = AudioProcessor(device=DEVICE)
+    check(apply_preset(proc, preset) is None, "apply_preset fell back")
+    captured = capture_preset(proc)
+    want, got_d = preset.to_dict(), captured.to_dict()
+    same = all(got_d[k] == want[k] for k in ("gate", "rnnoise", "deesser", "compressor",
+                                             "limiter", "bypass"))
+    check(same and captured.eq.band_gains == preset.eq.band_gains
+          and captured.eq.band_qs == preset.eq.band_qs,
+          "capture_preset after apply_preset differs from the preset")
+    with tempfile.TemporaryDirectory() as home:
+        old_home = os.environ.get("HOME")
+        os.environ["HOME"] = home
+        try:
+            path = save_preset(preset)
+        finally:
+            if old_home is None:
+                del os.environ["HOME"]
+            else:
+                os.environ["HOME"] = old_home
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "audioforge_tpu_torch", "run", "--preset", str(path),
+             "--duration", str(PRESET_RUN_S)], capture_output=True, text=True,
+            timeout=300, env=dict(os.environ, HOME=home))
+    print(f"[14] run --preset {path.name} --duration {PRESET_RUN_S:g} on the card: exit "
+          f"{done.returncode} in {time.perf_counter() - t0:.1f} s; "
+          f"{done.stdout.strip().splitlines()[-1:]}; capture_preset after apply_preset "
+          f"equals the preset", flush=True)
+    check(done.returncode == 0, f"run --preset failed: {done.stderr[-2000:]}")
+    return dict(total)
+
+
 def timed_phase(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2910,6 +3229,10 @@ def main() -> int:
     timed_phase("[12] simulators", phase12_simulators, card)
     live = timed_phase("[13] live engine", phase13_live_engine, card)
     for name, k in live.items():
+        counts[name] = counts.get(name, 0) + k
+    # this slice's path: the fleet's launches, counted from 0 just before it
+    fleet = timed_phase("[14] sharded preset fleet", phase14_sharded_fleet, card)
+    for name, k in fleet.items():
         counts[name] = counts.get(name, 0) + k
     print(f"all phases: {time.perf_counter() - t0:.1f} s wall-clock", flush=True)
     table = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

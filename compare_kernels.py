@@ -24,6 +24,16 @@ replay alone) and the live engine's VAD worker (``vad_window_times``: its
 window graph's replay alone, host ms a window). A replay's time can differ
 between processes of one tree, hence six processes.
 
+``python3 compare_kernels.py OTHER_ROOT --host`` runs four processes in
+turns (OTHER_ROOT, this, this, OTHER_ROOT), each running its own
+checkout's chip_smoke.py phases [3] (default path), [4] (full chain) and
+[8] (VAD-on) at fleet 1024 on its own package, and prints what they print
+of the serving host path: step(), step_many and step_pipelined() p50 and
+p99, the mean host time of step() with its split by stage, and the
+replay alone (ms a block).
+Each checkout times with its own helpers, so the two engines' internals
+may differ.
+
 ``python3 compare_kernels.py --sass FUNCTION ...`` builds this checkout's
 kernels and prints the SASS (``cuobjdump -sass``) of every kernel function
 whose name contains one of the FUNCTIONs, for reading a loop's dependency
@@ -71,6 +81,39 @@ def measure_replays(root: str) -> dict:
             "VAD window host": call_ms}
 
 
+HOST_PHASES = ('c.phase3_default(card); c.phase4_full_chain(card); '
+               'c.phase_model_path(card, "VAD-on", "[8]")')
+HOST_LINE = re.compile(
+    r"^(\[\d+\]) (step\(\)|step_many\(\d+\) per block|step_pipelined\(\)) x \d+ blocks "
+    r"\(info, [^)]*\): p50 ([\d.]+) ms, p99 ([\d.]+) ms")
+HOST_TOTAL = re.compile(r"^(\[\d+\]) step\(\) host split, mean ms .*?: total ([\d.]+): (.*)$")
+HOST_REPLAY = re.compile(r"^(\[\d+\]) replay alone on the card \(info, [^)]*\): ([\d.]+) ms")
+
+
+def measure_host(root: str) -> dict:
+    """The serving host path's times in ms a block, from the chip_smoke.py
+    of the checkout at ``root`` run on its own package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as c; card = c.phase0_device(); "
+         f"c.phase1_build(); {HOST_PHASES}"],
+        capture_output=True, text=True, check=False, cwd=root)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{root}: chip_smoke phases failed\n{proc.stdout[-4000:]}"
+                           f"{proc.stderr[-4000:]}")
+    out = {}
+    for line in proc.stdout.splitlines():
+        if m := HOST_LINE.match(line):
+            out[f"{m[1]} {m[2]} p50"], out[f"{m[1]} {m[2]} p99"] = float(m[3]), float(m[4])
+        elif m := HOST_TOTAL.match(line):
+            out[f"{m[1]} step() host mean"] = float(m[2])
+            for part in m[3].split(", "):  # the split's stages, each checkout's own
+                label, ms = part.rsplit(" ", 1)
+                out[f"{m[1]} host {label}"] = float(ms)
+        elif m := HOST_REPLAY.match(line):
+            out[f"{m[1]} replay alone"] = float(m[2])
+    return out
+
+
 def sass(names: list[str]) -> str:
     """The SASS of this checkout's kernel functions whose names contain one
     of ``names``."""
@@ -95,6 +138,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--measure-replays":
         print(json.dumps(measure_replays(sys.argv[2])))
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--measure-host":
+        print(json.dumps(measure_host(sys.argv[2])))
+        return 0
     if len(sys.argv) < 2 or sys.argv[1].startswith("-"):
         print(__doc__, file=sys.stderr)
         return 2
@@ -106,6 +152,8 @@ def main() -> int:
     this = str(HERE)
     if names == ["--replays"]:
         mode, names, turns = "--measure-replays", [], (other, this, other, this, this, other)
+    elif names == ["--host"]:
+        mode, names, turns = "--measure-host", [], (other, this, this, other)
     else:
         mode, turns = "--measure", (other, this, this, other)
     runs = []
@@ -119,7 +167,8 @@ def main() -> int:
         times = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append((label, times))
         print(f"{label} ({root}): {json.dumps(times)}", flush=True)
-    for name in runs[1][1]:  # a configuration the other checkout lacks shows as []
+    # a configuration or stage one checkout lacks shows as [] on its side
+    for name in dict.fromkeys(name for _, times in runs for name in times):
         med = {lab: sorted(t[name] for lb, t in runs if lb == lab and name in t)
                for lab in ("other", "this")}
         print(f"{name}: other {med['other']} ms, this {med['this']} ms", flush=True)

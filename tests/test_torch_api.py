@@ -32,6 +32,7 @@ import torch
 from audioforge_tpu import api as japi
 from audioforge_tpu.ops import eq as jeq
 from audioforge_tpu_torch import api as tapi
+from audioforge_tpu_torch.parallel import fleet_mesh
 
 LEGACY_BANDS = [(80.0, 0.0, 1.41), (160.0, 0.0, 1.41), (320.0, 1.5, 1.0),
                 (640.0, 0.0, 1.41), (1280.0, 2.0, 1.41), (2500.0, 0.0, 1.41),
@@ -148,9 +149,21 @@ def test_batched_simulator_equals_single_calls():
 
 
 def test_batched_simulator_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tapi.simulate_auto_eq_chain_batched(_take(48000, 0.05), 48000, LEGACY_BANDS, None,
+    # ported: the mesh is a FleetMesh (anything else raises) and the
+    # sharded call returns what the unsharded one does
+    x = _take(48000, 0.05)
+    with pytest.raises(TypeError, match="FleetMesh"):
+        tapi.simulate_auto_eq_chain_batched(x, 48000, LEGACY_BANDS, None,
                                             CANDIDATES, mesh=object(), device="cpu")
+    plain = tapi.simulate_auto_eq_chain_batched(x, 48000, LEGACY_BANDS, None, CANDIDATES[:3],
+                                                device="cpu")
+    sharded = tapi.simulate_auto_eq_chain_batched(x, 48000, LEGACY_BANDS, None,
+                                                  CANDIDATES[:3],
+                                                  mesh=fleet_mesh(devices=["cpu"] * 2))
+    assert len(sharded) == 3
+    for a, b in zip(plain, sharded):
+        assert {k: v for k, v in a.items() if not k.endswith("runtime_ms")} == {
+            k: v for k, v in b.items() if not k.endswith("runtime_ms")}
 
 
 def test_helpers_match_reference():

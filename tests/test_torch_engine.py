@@ -179,7 +179,7 @@ def test_control_writes_from_threads_during_the_free_run_loop():
             else:
                 assert static[k][slot].item() == v[0], f"{path}.{k}"
 
-    same(eng._params_static["chain"],
+    same(eng._shards[0]._params_static["chain"],
          tsv._stack_tree(tlc.live_params(eng.config.chain, **last), 1))
 
 
@@ -250,7 +250,7 @@ def test_staged_eq_waits_for_a_reset_and_is_dropped_by_detach():
     bands = [teq.EqBandConfig(b.filter_type, b.frequency_hz, 6.0, b.q)
              for b in teq.default_bands()]
     eng.set_stream_eq(slot, bands)
-    coeffs = lambda: eng._state["chain"]["eq"]["coeffs"][slot]
+    coeffs = lambda: eng._shards[0]._state["chain"]["eq"]["coeffs"][slot]
     flat = teq.eq_init(None, FS, n=1, device="cpu")["coeffs"][0]
     eng.step()  # the slot resets in this step: its EQ waits one more
     assert torch.equal(coeffs(), flat) and slot in eng._pending_eq
@@ -275,8 +275,8 @@ def test_static_buffers_match_chained_pure_steps():
     audio = np.stack([_noise(4, 6), _noise(4, 7)]).reshape(2, 4, BLOCK)
     got = [[], []]
     eng.push(eng.attach(sink=lambda b: got[0].append(b)), audio[0].ravel())
-    weights = eng._params_dev["supp"]["weights"]
-    state = tsv._clone_tree(eng._fresh)
+    weights = eng._shards[0]._params_dev["supp"]["weights"]
+    state = tsv._clone_tree(eng._shards[0]._fresh)
     vp, va = torch.zeros(2), torch.zeros(2, dtype=torch.bool)
     for b in range(4):
         if b == 1:
@@ -294,7 +294,7 @@ def test_static_buffers_match_chained_pure_steps():
             x[1] = torch.from_numpy(audio[1, b - 1])
         active = torch.tensor([True, b >= 1])
         eng.step()
-        state, y, _ = tsv._serving_step(cfg, params, state, eng._fresh, x, active,
+        state, y, _ = tsv._serving_step(cfg, params, state, eng._shards[0]._fresh, x, active,
                                         reset, vp, va)
         np.testing.assert_array_equal(got[0][-1], y[0].numpy())
         if b >= 1:
@@ -307,4 +307,4 @@ def test_static_buffers_match_chained_pure_steps():
             else:
                 assert torch.equal(a[k], v), f"{path}.{k}"
 
-    same(eng._state, state)
+    same(eng._shards[0]._state, state)

@@ -171,8 +171,9 @@ def test_engine_runs_on_the_card_by_default(monkeypatch):
         cli_main(["run", "--duration", "0.1"])
     with pytest.raises(RuntimeError, match="CUDA device"):
         cli_main(["diagnostics", "--settle", "0.1"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli_main(["run", "--preset", "x.json", "--device", "cpu"])
+    # run --preset is ported: on the card by default, so without one it raises
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        cli_main(["run", "--preset", "x.json"])
     assert tproc.AudioProcessor(device="cpu").device == torch.device("cpu")
 
 

@@ -33,6 +33,7 @@ from audioforge_tpu.ops import deesser as jdes
 from audioforge_tpu.runtime import live_chain as jlc
 from audioforge_tpu.runtime import serving as jsv
 from audioforge_tpu_torch import convert
+from audioforge_tpu_torch.parallel import fleet_mesh
 from audioforge_tpu_torch.runtime import live_chain as tlc
 from audioforge_tpu_torch.runtime import serving as tsv
 
@@ -198,14 +199,20 @@ def test_stream_params_change_only_their_stream():
 
 
 def test_unported_options_raise():
-    # the VAD and both DeepFilterNet3 models are ported; sharding is not
+    # every option is ported: the VAD, both DeepFilterNet3 models and the
+    # stream-axis sharding, which takes a FleetMesh and nothing else
     for model in ("rnnoise", "deepfilter-ll", "deepfilter", None):
         tsv.ServingConfig(suppressor_model=model, vad_enabled=True)
     with pytest.raises(ValueError):
         tsv.ServingConfig(suppressor_model="speex")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="FleetMesh"):
         tsv.ServingEngine(tsv.ServingConfig(capacity=1), sharding=object(),
                           device="cpu")
+    eng = tsv.ServingEngine(tsv.ServingConfig(capacity=2, suppressor_model=None),
+                            sharding=fleet_mesh(devices=["cpu"] * 2))
+    slot = eng.attach()
+    eng.push(slot, np.full(480, 0.1, np.float32))
+    assert eng.step()["output_rms_db"].shape == (2,)
     with pytest.raises(ValueError):
         tlc.LiveChainConfig(cleanup_mode="loud")
 
