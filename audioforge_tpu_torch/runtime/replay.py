@@ -22,6 +22,9 @@ added to ``kernels.launch_counts`` on every replay, the warm-up's and the
 capture's own are not counted; one capture at a time in the process, on the
 calling thread's one capture stream, with ``capture_error_mode=
 "thread_local"``; a failed capture raises, there is no eager path on the card.
+The tracer counts every capture (``replay.captures``) and every replay
+(``replay.replays``), and spans each capture, warm-up included, from the
+moment it holds the capture lock (``replay.capture``).
 
 :class:`BlockReplay` is the graph of a live engine: one block step captured
 once and replayed for every block while its topology lives, over static
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import tracing
 
 __all__ = ["clone_tree", "leaf_pairs", "copy_into", "capture_graph", "TakeReplay",
            "run_take", "BlockReplay"]
@@ -98,7 +102,8 @@ def capture_graph(device, body, state):
     what the captured ``body`` returned, the kernel launches of one replay
     and the capture's seconds. Raises when the capture fails."""
     dev = torch.device(device)
-    with _CAPTURE_LOCK, torch.cuda.device(dev), kernels.recording_launches():
+    with (_CAPTURE_LOCK, tracing.span("replay.capture"), torch.cuda.device(dev),
+          kernels.recording_launches()):
         stream = _capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -111,6 +116,7 @@ def capture_graph(device, body, state):
                 out = body(state)
             graph.instantiate()
             seconds = time.perf_counter() - t0
+    tracing.count("replay.captures")
     return graph, out, dict(recorded), seconds
 
 
@@ -163,6 +169,7 @@ class TakeReplay:
         self._replays += 1
         self.graph.replay()
         kernels.add_launches(self.graph_launches)
+        tracing.count("replay.replays")
 
     def run(self):
         """Run every block. Returns ``(final_state, rows)``."""
@@ -202,17 +209,9 @@ class BlockReplay:
     the output row's write is captured at the first :meth:`run` by
     :func:`capture_graph` and each block is one replay that reads its row at a device-side index the graph advances
     itself. A failed capture raises; there is no eager path on the card. On
-    the CPU the same step runs eagerly, row by row.
-
-    The class counts captures, replays and capture seconds over every
-    instance (``BlockReplay.captures`` and so on); an instance counts its
-    own captures in ``n_captures``.
+    the CPU the same step runs eagerly, row by row. An instance counts its
+    own captures in ``n_captures`` and their seconds in ``capture_seconds``.
     """
-
-    captures = 0
-    replays = 0
-    capture_seconds_total = 0.0
-    _stats_lock = threading.Lock()
 
     def __init__(self, step, state, inputs: dict, *, device, k_max: int = 8):
         self.step, self.state, self.k_max = step, state, int(k_max)
@@ -274,9 +273,6 @@ class BlockReplay:
         self._host_out = torch.empty((self.k_max, self.out_width), dtype=torch.float32,
                                      pin_memory=True)
         self._done = torch.cuda.Event()
-        with BlockReplay._stats_lock:
-            BlockReplay.captures += 1
-            BlockReplay.capture_seconds_total += seconds
         self.graph = graph
 
     def prepare(self) -> None:
@@ -304,8 +300,7 @@ class BlockReplay:
         self._host_out[:k].copy_(self._rows[:k], non_blocking=True)
         self._done.record()
         kernels.add_launches({name: n * k for name, n in self.graph_launches.items()})
-        with BlockReplay._stats_lock:
-            BlockReplay.replays += k
+        tracing.count("replay.replays", k)
         self._done.synchronize()
         return self._host_out[:k].numpy().copy()
 

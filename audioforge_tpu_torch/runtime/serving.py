@@ -49,6 +49,7 @@ from ..ops import eq as eq_ops
 from ..ops import resample
 from ..parallel.fleet import device_scope, mesh_devices
 from . import live_chain as lc
+from . import tracing
 from .replay import capture_graph
 from .replay import clone_tree as _clone_tree
 from .replay import copy_into as _copy_into
@@ -64,6 +65,8 @@ _RESET_COOLDOWN_BLOCKS = 200
 _STEP_TIME_HISTORY = 2048
 _LATENCY_BUCKETS_MS = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
 _SUPPRESSOR_MODELS = ("rnnoise", "deepfilter-ll", "deepfilter")
+# the device events of a replay: its start, then the end of each stage
+STAGE_MARKS = ("start", "vad", "front", "suppressor", "back", "copy_back")
 
 # the VAD is warm after ceil(576 / 160) = 4 blocks of 160 16 kHz samples
 _VAD_WARMUP_BLOCKS = silero.VAD_WARMUP_BLOCKS
@@ -228,11 +231,13 @@ def _vad_step(sp, state, x):
 
 
 def _serving_step(config: ServingConfig, params, state, fresh, x, active,
-                  reset_mask, ext_vad_prob, ext_vad_avail):
+                  reset_mask, ext_vad_prob, ext_vad_avail, mark=None):
     """One block for every slot, a pure function of its arguments.
     ``reset_mask`` None skips the slot reset (the engine resets its static
     state before the step instead). With ``vad_enabled`` the in-step
-    probability replaces the external one."""
+    probability replaces the external one. ``mark(stage)``, when given, is
+    called at the end of the stages "vad", "front", "suppressor" and "back"
+    (the engine records a device event there)."""
     if reset_mask is not None:
         state = _masked_reset(state, fresh, reset_mask, _SHARED)
     x = torch.where(active[:, None], x, 0.0)
@@ -240,13 +245,19 @@ def _serving_step(config: ServingConfig, params, state, fresh, x, active,
         vstate, vad_prob, vad_avail = _vad_step(params["vad"], state["vad"], x)
     else:
         vad_prob, vad_avail = ext_vad_prob, ext_vad_avail
+    if mark is not None:
+        mark("vad")
 
     chain, y, fm = lc.front_block(config.chain, params["chain"], state["chain"],
                                   x, vad_prob, vad_avail)
+    if mark is not None:
+        mark("front")
     sm = {}
     if config.suppressor_model is not None:
         sstate, y, sm = _supp_step(config, params["supp"], state["supp"],
                                    fresh["supp"]["model"], y)
+    if mark is not None:
+        mark("suppressor")
     evidence = {
         "vad_probability": vad_prob,
         "vad_reliability": vad_avail.to(torch.float32),
@@ -254,6 +265,8 @@ def _serving_step(config: ServingConfig, params, state, fresh, x, active,
         "live_noise_reliability": fm["noise_floor_reliability"],
     }
     chain, y2, bm = lc.back_block(config.chain, params["chain"], chain, y, evidence)
+    if mark is not None:
+        mark("back")
     new_state = {"chain": chain}
     if config.suppressor_model is not None:
         new_state["supp"] = sstate
@@ -337,12 +350,12 @@ class _Slot:
 
 class _Shard:
     """The device side of the engine's slots ``[lo, hi)``: their static state,
-    fresh state, control tree and step inputs on ``device``, and the CUDA
-    graph of their step."""
+    fresh state, control tree and step inputs on ``device``, the CUDA graph
+    of their step and the device events it records (``STAGE_MARKS``)."""
 
     __slots__ = ("device", "lo", "hi", "_fresh", "_state", "_params_static", "_params_dev",
                  "_x", "_active", "_active_host", "_vad_prob", "_vad_avail", "_graph",
-                 "_graph_out", "_graph_launches", "capture_seconds")
+                 "_graph_out", "_graph_launches", "_marks", "capture_seconds")
 
     def __init__(self, device, lo: int, hi: int, fresh: dict, params: dict, weights: dict):
         n = hi - lo
@@ -362,6 +375,7 @@ class _Shard:
         self._graph = None
         self._graph_out = None
         self._graph_launches = {}
+        self._marks = None
         self.capture_seconds = None
 
 
@@ -589,9 +603,11 @@ class ServingEngine:
     def _gather(self, n_blocks: int) -> torch.Tensor:
         """Stage the next ``n_blocks`` blocks: apply pending slot resets,
         staged EQ programs and control writes to every shard's static
-        buffers, and fill a host buffer ``[S, n_blocks, N/S, BLOCK]`` with the
-        slots' input, shard by shard (two buffers in turn, so that a copy
-        still in flight from the previous call is never overwritten)."""
+        buffers (eager device work outside the graph, each under an
+        "engine.reset" span), and fill a host buffer ``[S, n_blocks, N/S,
+        BLOCK]`` with the slots' input, shard by shard (two buffers in turn,
+        so that a copy still in flight from the previous call is never
+        overwritten)."""
         n, rows = self.config.capacity, self._rows_per_shard
         self._calls += 1
         xh = self._host(f"x{self._calls % 2}",
@@ -604,13 +620,10 @@ class ServingEngine:
             self._reset_pending[:] = False
             # a slot reset in this step would wipe its EQ surgery: it takes
             # the staged program one step later
-            for slot in [s for s in self._pending_eq if not reset[s]]:
-                fresh_eq = self._pending_eq.pop(slot)
-                sh, row = self._shard_of(slot)
-                with device_scope(sh.device):
-                    for key, value in fresh_eq.items():
-                        sh._state["chain"]["eq"][key][row].copy_(value[0],
-                                                                 non_blocking=True)
+            staged = [s for s in self._pending_eq if not reset[s]]
+            if staged or self._params_dirty:
+                with tracing.span("engine.reset"):
+                    self._write_controls(staged)
             want = n_blocks * BLOCK
             # shard by shard, so that a slot costs one index as unsharded
             for xk, lo in zip(x, range(0, n, rows)):
@@ -629,24 +642,38 @@ class ServingEngine:
                             xk[full, r, :rem] = got[full * BLOCK:]
                     if take < want:
                         s.underruns += -(-(want - take) // BLOCK)
-            if self._params_dirty:
+        if reset.any():
+            with tracing.span("engine.reset"):
                 for sh in self._shards:
-                    with device_scope(sh.device):
-                        _copy_host_tree(sh._params_static,
-                                        _host_rows(self._params, sh.lo, sh.hi))
-                self._params_dirty = False
+                    if reset[sh.lo:sh.hi].any():
+                        with device_scope(sh.device):
+                            mask = torch.from_numpy(reset[sh.lo:sh.hi]).to(
+                                sh.device, non_blocking=True)
+                            _copy_into(sh._state,
+                                       _masked_reset(sh._state, sh._fresh, mask, _SHARED))
         for sh in self._shards:
-            with device_scope(sh.device):
-                if reset[sh.lo:sh.hi].any():
-                    mask = torch.from_numpy(reset[sh.lo:sh.hi]).to(sh.device,
-                                                                   non_blocking=True)
-                    _copy_into(sh._state,
-                               _masked_reset(sh._state, sh._fresh, mask, _SHARED))
-                mine = active[sh.lo:sh.hi]
-                if not np.array_equal(mine, sh._active_host):
+            mine = active[sh.lo:sh.hi]
+            if not np.array_equal(mine, sh._active_host):
+                with device_scope(sh.device):
                     sh._active.copy_(torch.from_numpy(mine), non_blocking=True)
-                    sh._active_host = mine
+                sh._active_host = mine
         return xh
+
+    def _write_controls(self, staged: list) -> None:
+        """Under the lock: write the staged EQ programs of the slots
+        ``staged`` into their shards' EQ state, and the control tree, when a
+        control changed, into every shard's static controls."""
+        for slot in staged:
+            fresh_eq = self._pending_eq.pop(slot)
+            sh, row = self._shard_of(slot)
+            with device_scope(sh.device):
+                for key, value in fresh_eq.items():
+                    sh._state["chain"]["eq"][key][row].copy_(value[0], non_blocking=True)
+        if self._params_dirty:
+            for sh in self._shards:
+                with device_scope(sh.device):
+                    _copy_host_tree(sh._params_static, _host_rows(self._params, sh.lo, sh.hi))
+            self._params_dirty = False
 
     def _stage_vad(self, prob, avail) -> None:
         """Write the external VAD inputs into the shards' static tensors when
@@ -667,13 +694,19 @@ class ServingEngine:
                                         non_blocking=True)
         self._vad_host = (prob.copy(), avail.copy())
 
-    def _step_in_place(self, shard: _Shard, state):
+    def _step_in_place(self, shard: _Shard, state, mark=None):
         """:func:`_serving_step` on a shard's static inputs, its new state
-        copied into ``state``. Returns the block's ``(y, metrics)``."""
+        copied into ``state``; ``mark(stage)`` as ``_serving_step`` takes it,
+        also called with "start" first and "copy_back" last. Returns the
+        block's ``(y, metrics)``."""
+        if mark is not None:
+            mark("start")
         new_state, y, metrics = _serving_step(
             self.config, shard._params_dev, state, shard._fresh, shard._x,
-            shard._active, None, shard._vad_prob, shard._vad_avail)
+            shard._active, None, shard._vad_prob, shard._vad_avail, mark)
         _copy_into(state, new_state)
+        if mark is not None:
+            mark("copy_back")
         return y, metrics
 
     def _capture(self, shard: _Shard) -> None:
@@ -683,12 +716,17 @@ class ServingEngine:
         cached device constants, the cuFFT plan, the cuBLAS workspace, the
         kernels' attributes). The kernel launches the capture recorded are
         added to ``kernels.launch_counts`` on every replay; the warm-up's
-        and the capture's own are not counted. A failed capture raises."""
+        and the capture's own are not counted. The graph records a timing
+        event at each of ``STAGE_MARKS`` (six event nodes a replay), which
+        :meth:`_sample_stages` reads. A failed capture raises."""
         with self._lock:
+            marks = {m: torch.cuda.Event(enable_timing=True, external=True)
+                     for m in STAGE_MARKS}
             graph, out, launches, seconds = capture_graph(
-                shard.device, lambda state: self._step_in_place(shard, state),
+                shard.device,
+                lambda state: self._step_in_place(shard, state, lambda m: marks[m].record()),
                 shard._state)
-            shard._graph, shard._graph_out = graph, out
+            shard._graph, shard._graph_out, shard._marks = graph, out, marks
             shard._graph_launches, shard.capture_seconds = launches, seconds
 
     def _run(self, shard: _Shard):
@@ -697,9 +735,11 @@ class ServingEngine:
         if shard.device.type != "cuda":
             return self._step_in_place(shard, shard._state)
         if shard._graph is None:
-            self._capture(shard)
+            with tracing.span("engine.capture"):
+                self._capture(shard)
         shard._graph.replay()
         kernels.add_launches(shard._graph_launches)
+        tracing.count("replay.replays")
         return shard._graph_out
 
     def _launch(self, n_blocks: int, ext_vad_prob, ext_vad_avail):
@@ -707,47 +747,66 @@ class ServingEngine:
         output to a host buffer (two in turn): every shard's work is issued
         before any is waited on. Returns what :meth:`_landed` waits on and
         the last block's metrics."""
-        xh = self._gather(n_blocks)
-        self._stage_vad(ext_vad_prob, ext_vad_avail)
+        with tracing.span("engine.gather"):
+            xh = self._gather(n_blocks)
+        with tracing.span("engine.stage_vad"):
+            self._stage_vad(ext_vad_prob, ext_vad_avail)
         yh = self._host(f"y{self._calls % 2}", tuple(xh.shape))
         done, metrics = [], []
-        for k, sh in enumerate(self._shards):
-            with device_scope(sh.device):
-                if n_blocks == 1:
-                    sh._x.copy_(xh[k, 0], non_blocking=True)
-                    y, m = self._run(sh)
-                    yh[k, 0].copy_(y, non_blocking=True)
-                else:
-                    xs = xh[k].to(sh.device, non_blocking=True)
-                    ys = torch.empty_like(xs)
-                    for b in range(n_blocks):
-                        sh._x.copy_(xs[b])
+        with tracing.span("engine.launch"):
+            for k, sh in enumerate(self._shards):
+                with device_scope(sh.device):
+                    if n_blocks == 1:
+                        sh._x.copy_(xh[k, 0], non_blocking=True)
                         y, m = self._run(sh)
-                        ys[b].copy_(y)
-                    yh[k].copy_(ys, non_blocking=True)
-                metrics.append(_kept(m))
-                if sh.device.type == "cuda":
-                    done.append(torch.cuda.Event())
-                    done[-1].record()
-        if len(metrics) == 1:
-            return (yh, done), metrics[0]
-        with device_scope(self.device):
-            joined = {key: torch.cat([m[key].to(self.device) for m in metrics])
-                      for key in metrics[0]}
+                        yh[k, 0].copy_(y, non_blocking=True)
+                    else:
+                        xs = xh[k].to(sh.device, non_blocking=True)
+                        ys = torch.empty_like(xs)
+                        for b in range(n_blocks):
+                            sh._x.copy_(xs[b])
+                            y, m = self._run(sh)
+                            ys[b].copy_(y)
+                        yh[k].copy_(ys, non_blocking=True)
+                    metrics.append(_kept(m))
+                    if sh.device.type == "cuda":
+                        done.append(torch.cuda.Event())
+                        done[-1].record()
+            if len(metrics) == 1:
+                return (yh, done), metrics[0]
+            with device_scope(self.device):
+                joined = {key: torch.cat([m[key].to(self.device) for m in metrics])
+                          for key in metrics[0]}
         return (yh, done), joined
 
-    @staticmethod
-    def _landed(fetch) -> np.ndarray:
+    def _landed(self, fetch, stages: bool) -> np.ndarray:
         """The fetched blocks ``[n_blocks, N, BLOCK]`` as a new host array
-        (sinks may keep views)."""
+        (sinks may keep views). With ``stages`` (the landed block is the
+        last one launched) and spans on, also samples the last replay's
+        device time by stage (:meth:`_sample_stages`)."""
         buf, done = fetch
-        for event in done:
-            event.synchronize()
-        y = buf.numpy()
-        S, nb, rows, _ = y.shape
-        out = np.empty((nb, S * rows, BLOCK), np.float32)
-        out.reshape(nb, S, rows, BLOCK)[...] = y.transpose(1, 0, 2, 3)  # one copy
+        with tracing.span("engine.wait"):
+            for event in done:
+                event.synchronize()
+        if stages and tracing.enabled():
+            self._sample_stages()
+        with tracing.span("engine.unpack"):
+            y = buf.numpy()
+            S, nb, rows, _ = y.shape
+            out = np.empty((nb, S * rows, BLOCK), np.float32)
+            out.reshape(nb, S, rows, BLOCK)[...] = y.transpose(1, 0, 2, 3)  # one copy
         return out
+
+    def _sample_stages(self) -> None:
+        """Each shard's last replay, by stage: the device milliseconds between
+        the events its graph recorded, as the samples
+        ``replay.stage_ms.<stage>`` (stages "vad", "front", "suppressor",
+        "back" and "copy_back"). Called after the replay's wait."""
+        for sh in self._shards:
+            if sh._marks is not None:
+                ev = [sh._marks[m] for m in STAGE_MARKS]
+                for name, a, b in zip(STAGE_MARKS[1:], ev, ev[1:]):
+                    tracing.sample(f"replay.stage_ms.{name}", a.elapsed_time(b))
 
     def _record_time(self, t0: float, n_blocks: int) -> None:
         self.steps += n_blocks
@@ -757,8 +816,9 @@ class ServingEngine:
     def step(self, ext_vad_prob=None, ext_vad_avail=None):
         """Advance every stream by one block. Returns per-slot metrics."""
         t0 = time.perf_counter()
-        fetch, metrics = self._launch(1, ext_vad_prob, ext_vad_avail)
-        self._deliver(self._landed(fetch), 1)
+        with tracing.span("engine.step", n_blocks=1, shards=len(self._shards)):
+            fetch, metrics = self._launch(1, ext_vad_prob, ext_vad_avail)
+            self._deliver(self._landed(fetch, True), 1)
         self._last_metrics = metrics
         self._record_time(t0, 1)
         return metrics
@@ -770,19 +830,21 @@ class ServingEngine:
         Sinks receive each block one call later than :meth:`step`, with the
         same audio. Call :meth:`flush_pipeline` (or :meth:`stop`) to deliver
         the last block. Returns the delivered block's metrics, or None on
-        the first call."""
+        the first call. The delivery's span ("engine.deliver") names the
+        call that launched its block as its ``cause``."""
         t0 = time.perf_counter()
-        launched = self._launch(1, ext_vad_prob, ext_vad_avail)
-        delivered = None
-        if self._inflight is not None:
-            delivered = self._land(self._inflight)
-        self._inflight = launched
+        with tracing.span("engine.step_pipelined", n_blocks=1, shards=len(self._shards)):
+            launched = self._launch(1, ext_vad_prob, ext_vad_avail) + (tracing.current_call(),)
+            delivered = None
+            if self._inflight is not None:
+                delivered = self._land(self._inflight)
+            self._inflight = launched
         self._record_time(t0, 1)
         return delivered
 
     def _land(self, inflight):
-        fetch, metrics = inflight
-        self._deliver(self._landed(fetch), 1)
+        fetch, metrics, cause = inflight
+        self._deliver(self._landed(fetch, False), 1, cause)
         self._last_metrics = metrics
         return metrics
 
@@ -791,7 +853,8 @@ class ServingEngine:
         if self._inflight is None:
             return None
         inflight, self._inflight = self._inflight, None
-        return self._land(inflight)
+        with tracing.span("engine.flush_pipeline", n_blocks=1, shards=len(self._shards)):
+            return self._land(inflight)
 
     def step_many(self, n_blocks: int, ext_vad_prob=None, ext_vad_avail=None):
         """Advance every stream by ``n_blocks`` blocks: the span's input is
@@ -801,22 +864,26 @@ class ServingEngine:
         if n_blocks < 1:
             raise ValueError("n_blocks must be >= 1")
         t0 = time.perf_counter()
-        fetch, metrics = self._launch(n_blocks, ext_vad_prob, ext_vad_avail)
-        self._deliver(self._landed(fetch), n_blocks)
+        with tracing.span("engine.step_many", n_blocks=n_blocks, shards=len(self._shards)):
+            fetch, metrics = self._launch(n_blocks, ext_vad_prob, ext_vad_avail)
+            self._deliver(self._landed(fetch, True), n_blocks)
         self._last_metrics = metrics
         self._record_time(t0, n_blocks)
         return metrics
 
-    def _deliver(self, ys, n_blocks: int) -> None:
-        """``ys: [n_blocks, N, BLOCK]`` host array -> per-slot sinks."""
-        with self._lock:
-            targets = [(i, s) for i, s in enumerate(self._slots) if s.active]
-            for _, s in targets:
-                s.blocks += n_blocks
-        for i, s in targets:
-            if s.sink is not None:
-                for b in range(n_blocks):
-                    s.sink(ys[b, i])
+    def _deliver(self, ys, n_blocks: int, cause=None) -> None:
+        """``ys: [n_blocks, N, BLOCK]`` host array -> per-slot sinks.
+        ``cause``: the call id of the step that launched the blocks, when
+        another call delivers them."""
+        with tracing.span("engine.deliver", cause=cause):
+            with self._lock:
+                targets = [(i, s) for i, s in enumerate(self._slots) if s.active]
+                for _, s in targets:
+                    s.blocks += n_blocks
+            for i, s in targets:
+                if s.sink is not None:
+                    for b in range(n_blocks):
+                        s.sink(ys[b, i])
 
     def run_blocks(self, n_blocks: int) -> None:
         for _ in range(n_blocks):

@@ -1443,6 +1443,11 @@ def feed(eng, audio: np.ndarray) -> None:
         eng.push(i, audio[i])
 
 
+# the children of engine.step whose self time time_paths prints
+ENGINE_SPANS = ("engine.gather", "engine.reset", "engine.stage_vad", "engine.capture",
+                "engine.launch", "engine.wait", "engine.unpack", "engine.deliver")
+
+
 def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str,
                n_timed: int = TIMED_CALLS) -> None:
     """Information, on the engine's graph replays: ``n_timed`` step() calls
@@ -1450,9 +1455,11 @@ def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str,
     TIMED_SPAN blocks, ``n_timed`` step_pipelined() calls, the replay alone
     on the card (CUDA events around back-to-back replays), the state
     copy-back's share of it and the peak device memory since the engine was
-    built. ``audio`` (TIMED_SPAN blocks) is queued again every TIMED_SPAN
-    blocks, outside the timed calls."""
+    built; then step()'s host time by the engine's spans. ``audio``
+    (TIMED_SPAN blocks) is queued again every TIMED_SPAN blocks, outside the
+    timed calls."""
     from audioforge_tpu_torch.runtime import serving as sv
+    from audioforge_tpu_torch.runtime import tracing
 
     def run(call, n_calls: int, blocks: int) -> dict:
         eng._step_times.clear()
@@ -1476,34 +1483,25 @@ def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str,
         print(f"{tag} {name} x {h['samples']} blocks (info, {card}): p50 {h['p50_ms']:.3f} ms, "
               f"p99 {h['p99_ms']:.3f} ms, max {h['max_ms']:.3f} ms; audio-sec/sec at fleet "
               f"{FLEET} (p50) {rate(h['p50_ms']):.1f}", flush=True)
-    # where step()'s host time goes: the engine's stages on the host clock
-    # over TIMED_CALLS / 5 more calls (no synchronise added; "wait + copy" is the wait
-    # for the card's copy of the block and the copy the sinks keep; the rest holds the
-    # copies' launches and the metrics' copies)
-    split, calls = collections.Counter(), max(1, n_timed // 5)
-    stages = {"gather": "_gather", "VAD staging": "_stage_vad", "replay launch": "_run",
-              "wait + copy": "_landed", "sinks": "_deliver"}
-
-    def timed(label, fn):
-        def call(*args):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            split[label] += time.perf_counter() - t0
-            return out
-        return call
-
-    for label, attr in stages.items():
-        setattr(eng, attr, timed(label, getattr(eng, attr)))
+    # where step()'s host time goes: the self time of each of the engine's own
+    # spans over TIMED_CALLS / 5 more calls ("wait" is the wait for the card's
+    # copy of the block; "launch" holds the copies' launches and the
+    # metrics' copies; "the rest" is engine.step's own)
+    calls = max(1, n_timed // 5)
+    tracing.reset()
+    tracing.enable()
     try:
-        h = run(eng.step, calls, 1)
+        run(eng.step, calls, 1)
     finally:
-        for attr in stages.values():
-            delattr(eng, attr)
+        tracing.disable()
+    split = tracing.self_ns(tracing.snapshot()["spans"])
+    tracing.reset()
     total_ms = float(np.mean(eng._step_times)) * 1e3
-    parts = ", ".join(f"{label} {split[label] / calls * 1e3:.3f}" for label in stages)
-    print(f"{tag} step() host split, mean ms of {calls} calls (info, {card}): total "
-          f"{total_ms:.3f}: {parts}, the rest "
-          f"{total_ms - sum(split.values()) / calls * 1e3:.3f}", flush=True)
+    parts = ", ".join(f"{name[7:]} {split.get(name, 0) / calls / 1e6:.3f}"
+                      for name in ENGINE_SPANS)
+    print(f"{tag} step() host split, mean ms of {calls} calls by engine span (info, {card}): "
+          f"total {total_ms:.3f}: {parts}, the rest "
+          f"{split.get('engine.step', 0) / calls / 1e6:.3f}", flush=True)
     replay_ms = cuda_ms(eng._shards[0]._graph.replay, 50)
     REPLAY_MS[tag] = replay_ms
     # the copy-back alone: a graph of _copy_into on the pairs one eager step
@@ -2706,13 +2704,25 @@ class _LoopSource:
         return self.audio[idx]
 
 
+def _replay_tally(since_ns: int = 0) -> tuple:
+    """The tracer's counts of graph captures and replays so far, and the
+    seconds of the ``replay.capture`` spans (warm-up and capture) begun at
+    or after ``since_ns`` (the tracer's clock; spans are on in [13])."""
+    from audioforge_tpu_torch.runtime import tracing
+
+    snap = tracing.snapshot()
+    c = snap["counters"]
+    secs = sum(s["end_ns"] - s["start_ns"] for s in snap["spans"]
+               if s["name"] == "replay.capture" and s["start_ns"] >= since_ns) / 1e9
+    return c.get("replay.captures", 0), c.get("replay.replays", 0), secs
+
+
 def _live_threads(card: str, name: str, model, audio: np.ndarray, seconds: float,
                   paced: bool, change_at=None) -> dict:
     """Start the engine on a looping virtual source and a counting sink for
     ``seconds`` (``realtime_pacing`` = ``paced``); optionally switch the
     topology (de-esser on) at ``change_at`` s. Returns what it read."""
     from audioforge_tpu_torch.runtime import processor as proc
-    from audioforge_tpu_torch.runtime.replay import BlockReplay
 
     sink = {"blocks": 0, "peak": 0.0, "finite": True}
 
@@ -2725,8 +2735,8 @@ def _live_threads(card: str, name: str, model, audio: np.ndarray, seconds: float
     proc.register_virtual_output("smoke-sink", lambda: count)
     p = _live_processor(DEVICE, model)
     p.realtime_pacing = paced
-    replays0, captures0 = BlockReplay.replays, BlockReplay.captures
-    cap_s0 = BlockReplay.capture_seconds_total
+    captures0, replays0, _ = _replay_tally()
+    t0_ns = time.time_ns()
     t0 = time.perf_counter()
     p.start("smoke-mic", "smoke-sink")
     start_s = time.perf_counter() - t0
@@ -2735,19 +2745,20 @@ def _live_threads(card: str, name: str, model, audio: np.ndarray, seconds: float
     if change_at is not None:
         time.sleep(change_at)
         n_before, mem0 = len(p._dsp_times), torch.cuda.memory_allocated()
-        cap_before, captures_before = BlockReplay.capture_seconds_total, BlockReplay.captures
+        captures_before, change_ns = _replay_tally()[0], time.time_ns()
         t_change = time.perf_counter()
         p.set_deesser_enabled(True)
         # the new topology's front and back graphs, captured by the DSP thread
-        while (BlockReplay.captures < captures_before + 2
+        while (_replay_tally()[0] < captures_before + 2
                and time.perf_counter() - t_change < seconds - change_at):
             time.sleep(0.005)
         captured_s = time.perf_counter() - t_change
         time.sleep(max(0.0, seconds - change_at - captured_s))
         after = list(p._dsp_times)[n_before:]
+        captures, _, capture_s = _replay_tally(change_ns)
         out.update(change_ms=max(after) if after else float("nan"),
-                   change_captures=BlockReplay.captures - captures_before,
-                   change_capture_s=BlockReplay.capture_seconds_total - cap_before,
+                   change_captures=captures - captures_before,
+                   change_capture_s=capture_s,
                    change_wall_s=captured_s,
                    change_mib=(torch.cuda.memory_allocated() - mem0) / 2**20)
     else:
@@ -2756,10 +2767,10 @@ def _live_threads(card: str, name: str, model, audio: np.ndarray, seconds: float
     blocks = p._counters["blocks_processed"] - blocks0
     times = np.asarray(p._dsp_times, np.float64)
     p.stop()
+    captures, replays, capture_s = _replay_tally(t0_ns)
     out.update(diag=d, blocks=blocks, times=times, sink=sink,
-               replays=BlockReplay.replays - replays0,
-               captures=BlockReplay.captures - captures0,
-               capture_s=BlockReplay.capture_seconds_total - cap_s0,
+               replays=replays - replays0, captures=captures - captures0,
+               capture_s=capture_s,
                graphs=len(p._graphs), error=d["last_stream_error"],
                backend_failed=p.noise_backend_failed(),
                backend_error=p.noise_backend_error())
@@ -2821,8 +2832,7 @@ def phase13_live_engine(card: str) -> dict:
     from audioforge_tpu_torch import kernels
     from audioforge_tpu_torch.models import suppressor as supp
     from audioforge_tpu_torch.runtime import live_chain as lc
-    from audioforge_tpu_torch.runtime import ringbuffer
-    from audioforge_tpu_torch.runtime.replay import BlockReplay
+    from audioforge_tpu_torch.runtime import ringbuffer, tracing
     from audioforge_tpu_torch.runtime.stress_harness import run_seeded_control_dsp_stress
 
     check(ringbuffer.native_ring_available(), "[13] the native ring did not build")
@@ -2837,27 +2847,28 @@ def phase13_live_engine(card: str) -> dict:
                   if voiced[b - LIVE_LEAD_BLOCKS:b + LIVE_CPU_BLOCKS].sum() == span), None)
     check(start is not None, f"[13] no {span} voiced blocks after block {LIVE_BLOCKS}")
     loop = mic_capture(1, 200, 32)[0]
+    tracing.enable()  # the captures' spans: their seconds in (b) and (c)
     try:
         for name, (model, per_block) in LIVE_SETTINGS.items():
             t0 = time.perf_counter()
             # (a) deterministic
             p = _live_processor(DEVICE, model)
-            captures0, mem0 = BlockReplay.captures, torch.cuda.memory_allocated()
+            captures0, mem0 = _replay_tally()[0], torch.cuda.memory_allocated()
             first = {}
 
             def after_first():
                 torch.cuda.synchronize()
-                first.update(captures=BlockReplay.captures - captures0,
-                             mib=(torch.cuda.memory_allocated() - mem0) / 2**20,
-                             at=BlockReplay.captures)
+                at = _replay_tally()[0]
+                first.update(captures=at - captures0,
+                             mib=(torch.cuda.memory_allocated() - mem0) / 2**20, at=at)
                 kernels.reset_launch_counts()
 
             ys, secs, ctx = _live_blocks(p, audio, LIVE_BLOCKS, after_first)
             state, config, params, engine = ctx[:4]
             counts = dict(kernels.launch_counts)
             n = LIVE_BLOCKS - 1
-            check(BlockReplay.captures == first["at"],
-                  f"[13] {name}: {BlockReplay.captures - first['at']} captures after "
+            check(_replay_tally()[0] == first["at"],
+                  f"[13] {name}: {_replay_tally()[0] - first['at']} captures after "
                   "the first block")
             check(first["captures"] == (3 if model else 2),
                   f"[13] {name}: {first['captures']} graphs captured at the first block")
@@ -2897,7 +2908,7 @@ def phase13_live_engine(card: str) -> dict:
                   f"{peak:.4f} (ceiling {ceiling:.4f}); launches per block "
                   f"{ {k: v / n for k, v in counts.items() if v} }; graphs captured at "
                   f"the first block {first['captures']}, after it "
-                  f"{BlockReplay.captures - first['at']}; graph memory {first['mib']:.1f} "
+                  f"{_replay_tally()[0] - first['at']}; graph memory {first['mib']:.1f} "
                   f"MiB; host ms per block {_pcts(1e3 * secs[1:])}; replay alone on the "
                   f"card (ms) { {k: round(v, 4) for k, v in replay_ms.items()} }; card vs "
                   f"CPU from the card's state at block {start} over {LIVE_CPU_BLOCKS} "
@@ -2964,6 +2975,7 @@ def phase13_live_engine(card: str) -> dict:
         check(report.processed_blocks >= 120 and report.max_output_abs <= 16.0,
               "[13] the control storm did not process 120 bounded blocks")
     finally:
+        tracing.disable()
         os.environ.pop("AUDIOFORGE_ENABLE_DEEPFILTER", None)
     return dict(total)
 

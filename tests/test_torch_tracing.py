@@ -1,0 +1,257 @@
+"""The port's tracer (``runtime/tracing.py``) and the serving engine's spans,
+counters and stage marks, on the CPU: the span tree of ``step``,
+``step_many`` and ``step_pipelined``, spans off by default, the reset spans
+against the engine's pending work, the ring's bound, and the spans' clock
+against ``torch.profiler``'s."""
+
+import os
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audioforge_tpu_torch.runtime import live_chain as tlc
+from audioforge_tpu_torch.runtime import serving as tsv
+from audioforge_tpu_torch.runtime import tracing
+
+BLOCK = tsv.BLOCK
+ROOT = Path(__file__).resolve().parents[1]
+CHILDREN = ("engine.gather", "engine.stage_vad", "engine.launch", "engine.wait",
+            "engine.unpack", "engine.deliver")
+
+
+@pytest.fixture
+def spans_on():
+    tracing.reset()
+    tracing.enable()
+    try:
+        yield
+    finally:
+        tracing.disable()
+        tracing.reset()
+
+
+def _engine(capacity=2):
+    # no suppressor, gate or compressor: the plain twins' loops stay short
+    return tsv.ServingEngine(
+        tsv.ServingConfig(capacity=capacity, suppressor_model=None,
+                          chain=tlc.LiveChainConfig(gate_enabled=False,
+                                                    compressor_enabled=False)),
+        device="cpu")
+
+
+def _calls(spans):
+    """Spans grouped by call id, each group's root first."""
+    calls = {}
+    for s in spans:
+        calls.setdefault(s["call"], []).append(s)
+    return {c: sorted(g, key=lambda s: s["parent"] is not None) for c, g in calls.items()}
+
+
+def test_engine_calls_make_one_span_tree_each(spans_on):
+    eng = _engine()
+    got = []
+    for _ in range(2):
+        eng.push(eng.attach(sink=got.append), np.zeros(10 * BLOCK, np.float32))
+    eng.step()
+    eng.step_many(3)
+    eng.step_pipelined()
+    eng.step_pipelined()
+    spans = tracing.snapshot()["spans"]
+    calls = _calls(spans)
+    roots = [g[0] for g in calls.values()]
+    assert [r["name"] for r in roots] == ["engine.step", "engine.step_many",
+                                         "engine.step_pipelined", "engine.step_pipelined"]
+    assert [r["attrs"] for r in roots] == [{"n_blocks": 1, "shards": 1},
+                                           {"n_blocks": 3, "shards": 1},
+                                           {"n_blocks": 1, "shards": 1},
+                                           {"n_blocks": 1, "shards": 1}]
+    by_id = {s["id"]: s for s in spans}
+    for root in roots:
+        group = calls[root["call"]]
+        assert root["parent"] is None and root["call"] == root["id"]
+        for s in group[1:]:
+            # every child lies inside its parent, on the same thread
+            parent = by_id[s["parent"]]
+            assert parent["start_ns"] <= s["start_ns"] <= s["end_ns"] <= parent["end_ns"]
+            assert s["thread"] == root["thread"]
+        direct = [s["name"] for s in group if s["parent"] == root["id"]]
+        # the first pipelined call has no block to deliver yet
+        want = CHILDREN[:3] if root is roots[2] else CHILDREN
+        assert direct == list(want), (root["name"], direct)
+    # the first step's gather ran the slots' resets and the control write
+    first = calls[roots[0]["call"]]
+    gather = next(s for s in first if s["name"] == "engine.gather")
+    assert [s["name"] for s in first if s["parent"] == gather["id"]] == ["engine.reset"] * 2
+    # the second pipelined call delivers the block the first one launched
+    deliver = [s for s in calls[roots[3]["call"]] if s["name"] == "engine.deliver"]
+    assert [d["attrs"]["cause"] for d in deliver] == [roots[2]["call"]]
+    assert [s["attrs"]["cause"] for s in spans if s["name"] == "engine.deliver"
+            and s["call"] in (roots[0]["call"], roots[1]["call"])] == [None, None]
+    eng.flush_pipeline()
+    last = tracing.snapshot()["spans"][-1]
+    assert last["name"] == "engine.flush_pipeline"
+    flushed = [s for s in tracing.snapshot()["spans"] if s["call"] == last["call"]
+               and s["name"] == "engine.deliver"]
+    assert [d["attrs"]["cause"] for d in flushed] == [roots[3]["call"]]
+
+
+def test_spans_off_record_nothing():
+    tracing.disable()
+    tracing.reset()
+    assert not tracing.enabled()
+    assert tracing.span("a") is tracing.span("b", n_blocks=1)
+    eng = _engine(1)
+    eng.push(eng.attach(), np.zeros(BLOCK, np.float32))
+    eng.step()
+    tracing.count("probe", 2)
+    snap = tracing.snapshot()
+    assert snap["spans"] == [] and snap["samples"] == {} and not snap["enabled"]
+    # counters stay on; the CPU engine replays no graph, so counts nothing
+    assert snap["counters"] == {"probe": 2}
+
+
+def test_a_process_that_never_enables_spans_records_none():
+    code = textwrap.dedent("""
+        import json
+        import numpy as np
+        from audioforge_tpu_torch.runtime import live_chain as tlc
+        from audioforge_tpu_torch.runtime import serving as tsv
+        from audioforge_tpu_torch.runtime import tracing
+        eng = tsv.ServingEngine(tsv.ServingConfig(
+            capacity=1, suppressor_model=None,
+            chain=tlc.LiveChainConfig(gate_enabled=False, compressor_enabled=False)),
+            device="cpu")
+        eng.push(eng.attach(sink=lambda block: None), np.zeros(960, np.float32))
+        eng.step()
+        eng.step_pipelined()
+        snap = tracing.snapshot()
+        print(json.dumps([len(snap["spans"]), len(snap["samples"])]))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[0, 0]"
+
+
+def test_reset_spans_follow_the_engines_pending_work(spans_on):
+    """An ``engine.reset`` span under the gather for each kind of eager
+    device work pending, the slots' resets and the control writes, and none
+    in a step with nothing pending."""
+    eng = _engine(3)
+    slots = [eng.attach(sink=lambda block: None) for _ in range(3)]
+    for slot in slots:
+        eng.push(slot, np.zeros(8 * BLOCK, np.float32))
+
+    def resets_in_next_step(call):
+        tracing.reset()
+        call()
+        spans = tracing.snapshot()["spans"]
+        gather = [s["id"] for s in spans if s["name"] == "engine.gather"]
+        return sum(s["name"] == "engine.reset" and s["parent"] in gather for s in spans)
+
+    # the attached slots' resets and their controls
+    assert resets_in_next_step(eng.step) == 2
+    assert resets_in_next_step(lambda: eng.step_many(2)) == 0
+    eng.set_stream_params(slots[0], compressor_threshold_db=-30.0)
+    assert resets_in_next_step(eng.step) == 1
+    eng.detach(slots[2])
+    assert eng.attach(sink=lambda block: None) == slots[2]
+    assert resets_in_next_step(eng.step) == 2
+    eng.set_stream_eq(slots[1], None)
+    assert resets_in_next_step(eng.step_pipelined) == 1
+    assert resets_in_next_step(eng.step_pipelined) == 0
+    eng.flush_pipeline()
+    assert tracing.snapshot()["counters"] == {}
+
+
+def test_stage_marks_come_in_order():
+    eng = _engine(1)
+    sh = eng._shards[0]
+    marks = []
+    state = tsv._clone_tree(sh._state)
+    eng._step_in_place(sh, state, marks.append)
+    assert tuple(marks) == tsv.STAGE_MARKS
+
+
+def test_ring_keeps_the_newest_and_counts_the_dropped():
+    tr = tracing.Tracer(ring=4)
+    tr.enable()
+    for i in range(10):
+        with tr.span(f"s{i}"):
+            pass
+    snap = tr.snapshot()
+    assert [s["name"] for s in snap["spans"]] == ["s6", "s7", "s8", "s9"]
+    assert snap["dropped_spans"] == 6
+    tr.reset()
+    assert tr.snapshot()["spans"] == [] and tr.snapshot()["dropped_spans"] == 0
+
+
+def test_spans_share_the_profilers_clock(spans_on):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("warm-up"):  # its first range sets up
+            pass
+        for i in range(5):
+            with tracing.span(f"clock_probe_{i}"), \
+                    torch.profiler.record_function(f"clock_probe_{i}"):
+                time.sleep(0.001)
+    marked = {e.name(): e.start_ns() for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("clock_probe_")}
+    spans = {s["name"]: s["start_ns"] for s in tracing.snapshot()["spans"]}
+    assert sorted(marked) == sorted(spans)
+    for name, t in marked.items():
+        assert abs(spans[name] - t) < 200_000, (name, spans[name] - t)
+
+
+def test_self_time_leaves_out_the_children():
+    spans = [
+        {"name": "root", "id": 1, "parent": None, "start_ns": 0, "end_ns": 100},
+        {"name": "a", "id": 2, "parent": 1, "start_ns": 10, "end_ns": 40},
+        {"name": "b", "id": 3, "parent": 2, "start_ns": 15, "end_ns": 25},
+        {"name": "a", "id": 4, "parent": 1, "start_ns": 50, "end_ns": 60},
+    ]
+    assert tracing.self_ns(spans) == {"root": 60, "a": 30, "b": 10}
+
+
+def test_counts_and_span_stacks_hold_across_threads():
+    """More threads than cores count and nest spans at once, with a short
+    switch interval: no count is lost and every child names its own
+    thread's parent."""
+    import threading
+
+    tr = tracing.Tracer()
+    tr.enable()
+    n_threads, n = 16, 300
+
+    def work():
+        for _ in range(n):
+            with tr.span("outer"):
+                tr.count("c")
+                with tr.span("inner"):
+                    tr.count("c", 2)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    snap = tr.snapshot()
+    assert snap["counters"]["c"] == 3 * n * n_threads
+    by_id = {s["id"]: s for s in snap["spans"]}
+    inner = [s for s in snap["spans"] if s["name"] == "inner"]
+    assert len(inner) == n * n_threads
+    for s in inner:
+        parent = by_id[s["parent"]]
+        assert parent["name"] == "outer" and parent["thread"] == s["thread"]
+        assert s["call"] == parent["id"]
