@@ -19,8 +19,10 @@ step), which also copies the new state back into the static state; a slot
 reset, a staged EQ program and a control write are applied to the static
 buffers before the replay. On the CPU the same code calls
 :func:`_serving_step` eagerly in place of the replay. ``step_many`` replays
-the graph once per block of the span; ``step_pipelined`` delivers block
-t-1 while block t runs; ``start`` runs the free-run loop.
+the graph once per block of the span, in chunks of :data:`CHUNK_BLOCKS`
+blocks: the host fills chunk j+1 and delivers chunk j-1 while the card runs
+chunk j; ``step_pipelined`` delivers block t-1 while block t runs; ``start``
+runs the free-run loop.
 
 The engine runs on the card unless it is given ``device="cpu"``; without a
 CUDA device, building one for the card raises.
@@ -65,6 +67,9 @@ _RESET_COOLDOWN_BLOCKS = 200
 _STEP_TIME_HISTORY = 2048
 _LATENCY_BUCKETS_MS = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
 _SUPPRESSOR_MODELS = ("rnnoise", "deepfilter-ll", "deepfilter")
+# step_many's pipeline stage: blocks a chunk (80 ms of audio). The head and
+# tail of a call, which nothing overlaps, cost about a chunk's host work
+CHUNK_BLOCKS = 8
 # the device events of a replay: its start, then the end of each stage
 STAGE_MARKS = ("start", "vad", "front", "suppressor", "back", "copy_back")
 
@@ -600,48 +605,24 @@ class ServingEngine:
             self._host_bufs[key] = buf
         return buf
 
-    def _gather(self, n_blocks: int) -> torch.Tensor:
-        """Stage the next ``n_blocks`` blocks: apply pending slot resets,
-        staged EQ programs and control writes to every shard's static
-        buffers (eager device work outside the graph, each under an
-        "engine.reset" span), and fill a host buffer ``[S, n_blocks, N/S,
-        BLOCK]`` with the slots' input, shard by shard (two buffers in turn,
-        so that a copy still in flight from the previous call is never
-        overwritten)."""
-        n, rows = self.config.capacity, self._rows_per_shard
-        self._calls += 1
-        xh = self._host(f"x{self._calls % 2}",
-                        (len(self._shards), n_blocks, rows, BLOCK))
-        x = xh.numpy()
-        x.fill(0.0)
-        active = np.zeros(n, bool)
-        with self._lock:
-            reset = self._reset_pending.copy()
-            self._reset_pending[:] = False
-            # a slot reset in this step would wipe its EQ surgery: it takes
-            # the staged program one step later
-            staged = [s for s in self._pending_eq if not reset[s]]
-            if staged or self._params_dirty:
-                with tracing.span("engine.reset"):
-                    self._write_controls(staged)
-            want = n_blocks * BLOCK
-            # shard by shard, so that a slot costs one index as unsharded
-            for xk, lo in zip(x, range(0, n, rows)):
-                for r, s in enumerate(self._slots[lo:lo + rows]):
-                    if not s.active:
-                        continue
-                    active[lo + r] = True
-                    take = min(want, s.pending.size)
-                    if take:
-                        got = s.pending[:take]
-                        s.pending = s.pending[take:]
-                        full, rem = divmod(take, BLOCK)
-                        for b in range(full):
-                            xk[b, r] = got[b * BLOCK:(b + 1) * BLOCK]
-                        if rem:
-                            xk[full, r, :rem] = got[full * BLOCK:]
-                    if take < want:
-                        s.underruns += -(-(want - take) // BLOCK)
+    def _begin_step(self) -> np.ndarray:
+        """Under the lock, at a step's start: take the pending slot resets,
+        and write the staged EQ programs and the control writes into every
+        shard's static buffers (eager device work outside the graph, under
+        an "engine.reset" span). Returns the reset mask."""
+        reset = self._reset_pending.copy()
+        self._reset_pending[:] = False
+        # a slot reset in this step would wipe its EQ surgery: it takes the
+        # staged program one step later
+        staged = [s for s in self._pending_eq if not reset[s]]
+        if staged or self._params_dirty:
+            with tracing.span("engine.reset"):
+                self._write_controls(staged)
+        return reset
+
+    def _write_masks(self, reset: np.ndarray, active: np.ndarray) -> None:
+        """Blend fresh state into the reset slots (under an "engine.reset"
+        span) and write the active mask where it changed, on every shard."""
         if reset.any():
             with tracing.span("engine.reset"):
                 for sh in self._shards:
@@ -657,7 +638,88 @@ class ServingEngine:
                 with device_scope(sh.device):
                     sh._active.copy_(torch.from_numpy(mine), non_blocking=True)
                 sh._active_host = mine
+
+    def _gather(self) -> torch.Tensor:
+        """Stage the next block: apply pending slot resets, staged EQ
+        programs and control writes, and fill a host buffer ``[S, 1, N/S,
+        BLOCK]`` with the slots' input, shard by shard (two buffers in turn,
+        so that a copy still in flight from the previous call is never
+        overwritten)."""
+        n, rows = self.config.capacity, self._rows_per_shard
+        self._calls += 1
+        xh = self._host(f"x{self._calls % 2}", (len(self._shards), 1, rows, BLOCK))
+        x = xh.numpy()
+        x.fill(0.0)
+        active = np.zeros(n, bool)
+        with self._lock:
+            reset = self._begin_step()
+            # shard by shard, so that a slot costs one index as unsharded
+            for xk, lo in zip(x[:, 0], range(0, n, rows)):
+                for r, s in enumerate(self._slots[lo:lo + rows]):
+                    if not s.active:
+                        continue
+                    active[lo + r] = True
+                    take = min(BLOCK, s.pending.size)
+                    if take:
+                        xk[r, :take] = s.pending[:take]
+                        s.pending = s.pending[take:]
+                    if take < BLOCK:
+                        s.underruns += 1
+        self._write_masks(reset, active)
         return xh
+
+    def _take(self, n_blocks: int) -> tuple:
+        """The start of a :meth:`step_many` call: apply pending slot resets,
+        staged EQ programs and control writes, and take up to ``n_blocks``
+        blocks of every active slot's pending audio (an underrun for each
+        block short). Audio pushed later goes to the next step. Returns the
+        taken audio by slot, None for an inactive slot, else ``(full blocks
+        [F, BLOCK], the partial block's samples)``, and the active slots as
+        ``(slot, _Slot, generation)``."""
+        n = self.config.capacity
+        active = np.zeros(n, bool)
+        taken, targets = [None] * n, []
+        want = n_blocks * BLOCK
+        with self._lock:
+            reset = self._begin_step()
+            for i, s in enumerate(self._slots):
+                if not s.active:
+                    continue
+                active[i] = True
+                targets.append((i, s, s.generation))
+                take = min(want, s.pending.size)
+                got, s.pending = s.pending[:take], s.pending[take:]
+                full = take // BLOCK * BLOCK
+                taken[i] = (got[:full].reshape(-1, BLOCK), got[full:])
+                if take < want:
+                    s.underruns += -(-(want - take) // BLOCK)
+        self._write_masks(reset, active)
+        return taken, targets
+
+    def _fill(self, xh: torch.Tensor, taken: list, b0: int, b1: int) -> None:
+        """Write the blocks ``[b0, b1)`` of the audio :meth:`_take` took into
+        the host buffer ``xh [S, >= b1 - b0, N/S, BLOCK]``, shard by shard: a
+        slot's full blocks in one copy, then its partial block; zeros only
+        in the blocks a slot lacks and in an inactive slot's rows."""
+        nb, rows = b1 - b0, self._rows_per_shard
+        for k, xk in enumerate(xh.numpy()[:, :nb]):
+            for r, t in enumerate(taken[k * rows:(k + 1) * rows]):
+                if t is None:
+                    xk[:, r] = 0.0
+                    continue
+                blocks, tail = t
+                got = blocks[b0:b1]
+                m = len(got)
+                if m == nb:
+                    xk[:, r] = got
+                    continue
+                if m:
+                    xk[:m, r] = got
+                if tail.size and b0 + m == len(blocks):
+                    xk[m, r, :tail.size] = tail
+                    xk[m, r, tail.size:] = 0.0
+                    m += 1
+                xk[m:, r] = 0.0
 
     def _write_controls(self, staged: list) -> None:
         """Under the lock: write the staged EQ programs of the slots
@@ -742,48 +804,58 @@ class ServingEngine:
         tracing.count("replay.replays")
         return shard._graph_out
 
-    def _launch(self, n_blocks: int, ext_vad_prob, ext_vad_avail):
-        """Run ``n_blocks`` blocks on every shard and start copying their
-        output to a host buffer (two in turn): every shard's work is issued
-        before any is waited on. Returns what :meth:`_landed` waits on and
-        the last block's metrics."""
+    def _launch(self, ext_vad_prob, ext_vad_avail):
+        """Gather the next block, run it and start copying its output to a
+        host buffer (two in turn). Returns what :meth:`_landed` waits on and
+        the block's metrics."""
         with tracing.span("engine.gather"):
-            xh = self._gather(n_blocks)
+            xh = self._gather()
         with tracing.span("engine.stage_vad"):
             self._stage_vad(ext_vad_prob, ext_vad_avail)
         yh = self._host(f"y{self._calls % 2}", tuple(xh.shape))
-        done, metrics = [], []
         with tracing.span("engine.launch"):
-            for k, sh in enumerate(self._shards):
-                with device_scope(sh.device):
-                    if n_blocks == 1:
-                        sh._x.copy_(xh[k, 0], non_blocking=True)
-                        y, m = self._run(sh)
-                        yh[k, 0].copy_(y, non_blocking=True)
-                    else:
-                        xs = xh[k].to(sh.device, non_blocking=True)
-                        ys = torch.empty_like(xs)
-                        for b in range(n_blocks):
-                            sh._x.copy_(xs[b])
-                            y, m = self._run(sh)
-                            ys[b].copy_(y)
-                        yh[k].copy_(ys, non_blocking=True)
-                    metrics.append(_kept(m))
-                    if sh.device.type == "cuda":
-                        done.append(torch.cuda.Event())
-                        done[-1].record()
-            if len(metrics) == 1:
-                return (yh, done), metrics[0]
-            with device_scope(self.device):
-                joined = {key: torch.cat([m[key].to(self.device) for m in metrics])
-                          for key in metrics[0]}
-        return (yh, done), joined
+            done, metrics = self._enqueue(xh, yh, 1, True)
+        return (yh, done), metrics
 
-    def _landed(self, fetch, stages: bool) -> np.ndarray:
-        """The fetched blocks ``[n_blocks, N, BLOCK]`` as a new host array
-        (sinks may keep views). With ``stages`` (the landed block is the
-        last one launched) and spans on, also samples the last replay's
-        device time by stage (:meth:`_sample_stages`)."""
+    def _enqueue(self, xh: torch.Tensor, yh: torch.Tensor, n_blocks: int, keep: bool):
+        """Run the blocks ``xh[:, :n_blocks]`` on every shard and queue the
+        copy of their output into ``yh[:, :n_blocks]``: every shard's work is
+        started before any is waited on. Returns the events that follow the
+        shards' copies and, with ``keep``, the last block's metrics (copies
+        that later blocks do not overwrite), else None."""
+        done, metrics = [], []
+        for k, sh in enumerate(self._shards):
+            with device_scope(sh.device):
+                if n_blocks == 1:
+                    sh._x.copy_(xh[k, 0], non_blocking=True)
+                    y, m = self._run(sh)
+                    yh[k, 0].copy_(y, non_blocking=True)
+                else:
+                    xs = xh[k, :n_blocks].to(sh.device, non_blocking=True)
+                    ys = torch.empty_like(xs)
+                    for b in range(n_blocks):
+                        sh._x.copy_(xs[b])
+                        y, m = self._run(sh)
+                        ys[b].copy_(y)
+                    yh[k, :n_blocks].copy_(ys, non_blocking=True)
+                if keep:
+                    metrics.append(_kept(m))
+                if sh.device.type == "cuda":
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
+        if not keep:
+            return done, None
+        if len(metrics) == 1:
+            return done, metrics[0]
+        with device_scope(self.device):
+            return done, {key: torch.cat([m[key].to(self.device) for m in metrics])
+                          for key in metrics[0]}
+
+    def _landed(self, fetch, stages: bool, out=None) -> np.ndarray:
+        """The fetched blocks ``[n_blocks, N, BLOCK]`` as a new host array, or
+        written into ``out`` (sinks may keep views). With ``stages`` (the
+        landed block is the last one launched) and spans on, also samples
+        the last replay's device time by stage (:meth:`_sample_stages`)."""
         buf, done = fetch
         with tracing.span("engine.wait"):
             for event in done:
@@ -793,7 +865,8 @@ class ServingEngine:
         with tracing.span("engine.unpack"):
             y = buf.numpy()
             S, nb, rows, _ = y.shape
-            out = np.empty((nb, S * rows, BLOCK), np.float32)
+            if out is None:
+                out = np.empty((nb, S * rows, BLOCK), np.float32)
             out.reshape(nb, S, rows, BLOCK)[...] = y.transpose(1, 0, 2, 3)  # one copy
         return out
 
@@ -817,7 +890,7 @@ class ServingEngine:
         """Advance every stream by one block. Returns per-slot metrics."""
         t0 = time.perf_counter()
         with tracing.span("engine.step", n_blocks=1, shards=len(self._shards)):
-            fetch, metrics = self._launch(1, ext_vad_prob, ext_vad_avail)
+            fetch, metrics = self._launch(ext_vad_prob, ext_vad_avail)
             self._deliver(self._landed(fetch, True), 1)
         self._last_metrics = metrics
         self._record_time(t0, 1)
@@ -834,7 +907,7 @@ class ServingEngine:
         call that launched its block as its ``cause``."""
         t0 = time.perf_counter()
         with tracing.span("engine.step_pipelined", n_blocks=1, shards=len(self._shards)):
-            launched = self._launch(1, ext_vad_prob, ext_vad_avail) + (tracing.current_call(),)
+            launched = self._launch(ext_vad_prob, ext_vad_avail) + (tracing.current_call(),)
             delivered = None
             if self._inflight is not None:
                 delivered = self._land(self._inflight)
@@ -857,30 +930,78 @@ class ServingEngine:
             return self._land(inflight)
 
     def step_many(self, n_blocks: int, ext_vad_prob=None, ext_vad_avail=None):
-        """Advance every stream by ``n_blocks`` blocks: the span's input is
-        staged on the device once, the step runs once per block, and the
-        output comes back in one copy and is delivered together. Returns
+        """Advance every stream by ``n_blocks`` blocks. The call's input is
+        taken from the slots at its start (audio pushed during the call, by
+        a sink too, goes to the next step); then the call runs as a pipeline
+        over chunks of :data:`CHUNK_BLOCKS` blocks: chunk j's input goes to
+        the device and its blocks run, and while they run the host fills
+        chunk j+1's buffer, then waits for chunk j-1's output and delivers
+        it. Every block lands in one new host array ``[n_blocks, N, BLOCK]``,
+        of which the sinks get views, in block order for each slot. Counts
+        each chunk (``engine.span_chunks``) and each chunk still running when
+        the host came to wait for it (``engine.span_chunks_hidden``). Returns
         the final block's per-slot metrics."""
         if n_blocks < 1:
             raise ValueError("n_blocks must be >= 1")
         t0 = time.perf_counter()
+        chunks = [(b0, min(b0 + CHUNK_BLOCKS, n_blocks))
+                  for b0 in range(0, n_blocks, CHUNK_BLOCKS)]
+        shape = (len(self._shards), chunks[0][1], self._rows_per_shard, BLOCK)
         with tracing.span("engine.step_many", n_blocks=n_blocks, shards=len(self._shards)):
-            fetch, metrics = self._launch(n_blocks, ext_vad_prob, ext_vad_avail)
-            self._deliver(self._landed(fetch, True), n_blocks)
+            with tracing.span("engine.gather"):
+                taken, targets = self._take(n_blocks)
+                xh = self._host("xc0", shape)
+                self._fill(xh, taken, *chunks[0])
+            with tracing.span("engine.stage_vad"):
+                self._stage_vad(ext_vad_prob, ext_vad_avail)
+            out = np.empty((n_blocks, self.config.capacity, BLOCK), np.float32)
+            inflight = None
+            for j, (b0, b1) in enumerate(chunks):
+                last = j == len(chunks) - 1
+                yh = self._host(f"yc{j % 2}", shape)
+                with tracing.span("engine.launch"):
+                    done, metrics = self._enqueue(xh, yh, b1 - b0, last)
+                tracing.count("engine.span_chunks")
+                if not last:
+                    # three input buffers: chunk j+1's is chunk j-2's, whose
+                    # output has been waited for
+                    xh = self._host(f"xc{(j + 1) % 3}", shape)
+                    with tracing.span("engine.gather"):
+                        self._fill(xh, taken, *chunks[j + 1])
+                if inflight is not None:
+                    self._land_chunk(out, inflight, targets, False)
+                inflight = (yh, done, b0, b1)
+            self._land_chunk(out, inflight, targets, True)
         self._last_metrics = metrics
         self._record_time(t0, n_blocks)
         return metrics
 
-    def _deliver(self, ys, n_blocks: int, cause=None) -> None:
+    def _land_chunk(self, out: np.ndarray, inflight: tuple, targets: list,
+                    stages: bool) -> None:
+        """Wait for a chunk of :meth:`step_many`, write its output into its
+        rows of the call's array ``out`` and deliver them to ``targets``."""
+        yh, done, b0, b1 = inflight
+        if not all(event.query() for event in done):
+            tracing.count("engine.span_chunks_hidden")
+        ys = self._landed((yh[:, :b1 - b0], done), stages, out[b0:b1])
+        self._deliver(ys, b1 - b0, targets=targets)
+
+    def _deliver(self, ys, n_blocks: int, cause=None, targets=None) -> None:
         """``ys: [n_blocks, N, BLOCK]`` host array -> per-slot sinks.
         ``cause``: the call id of the step that launched the blocks, when
-        another call delivers them."""
+        another call delivers them. ``targets``: the ``(slot, _Slot,
+        generation)`` whose audio the blocks are, of which those still
+        attached get them; by default every slot attached now."""
         with tracing.span("engine.deliver", cause=cause):
             with self._lock:
-                targets = [(i, s) for i, s in enumerate(self._slots) if s.active]
-                for _, s in targets:
+                if targets is None:
+                    live = [(i, s) for i, s in enumerate(self._slots) if s.active]
+                else:
+                    live = [(i, s) for i, s, gen in targets
+                            if s.active and s.generation == gen]
+                for _, s in live:
                     s.blocks += n_blocks
-            for i, s in targets:
+            for i, s in live:
                 if s.sink is not None:
                     for b in range(n_blocks):
                         s.sink(ys[b, i])

@@ -1,7 +1,10 @@
 """The port's tracer: counters for the whole process, and spans, off by default.
 
 Counters (:func:`count`) are always on: the graph replays count captures
-(``replay.captures``) and replays (``replay.replays``). Spans (:func:`span`) record
+(``replay.captures``) and replays (``replay.replays``), and the serving
+engine's ``step_many`` its chunks (``engine.span_chunks``) and those still
+running on the card when the host came to wait for them
+(``engine.span_chunks_hidden``). Spans (:func:`span`) record
 only between :func:`enable` and :func:`disable`; while they are off,
 :func:`span` returns one shared null context, so an off span costs a flag
 check. Samples (:func:`sample`), the serving engine's device time per stage

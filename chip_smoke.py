@@ -59,7 +59,9 @@ a non-zero exit when it fails, and each followed by its wall-clock time:
    ``_serving_step`` called eagerly on the card on the same inputs: every
    block's output and the final state ``torch.equal``; and a second engine
    through step_pipelined() + flush_pipeline() delivers the same blocks as
-   step(); then the DeepFilterNet3-LL path at fleet 1024 for 20 blocks with a
+   step(), and a third through step_many over the spans between the events
+   (chunks of ``CHUNK_BLOCKS`` blocks) the same blocks, each call's as views
+   of one array, and the same state; then the DeepFilterNet3-LL path at fleet 1024 for 20 blocks with a
    slot reset, graph against eager, ``torch.equal`` (held to 1e-5, naming
    the blocks and leaves, where not equal);
 8. VAD-on path: bench.py's VAD cell (strong cleanup, de-esser, VAD-assisted
@@ -1479,10 +1481,13 @@ def time_paths(eng, outs, audio: np.ndarray, card: str, tag: str,
             (f"step_many({TIMED_SPAN}) per block", lambda: eng.step_many(TIMED_SPAN),
              4, TIMED_SPAN),
             ("step_pipelined()", eng.step_pipelined, n_timed, 1)):
+        chunks0 = _chunk_tally()
         h = run(call, n_calls, blocks)
+        chunks, hidden = np.subtract(_chunk_tally(), chunks0)
+        overlap = f"; chunks hidden {hidden} of {chunks}" if chunks else ""
         print(f"{tag} {name} x {h['samples']} blocks (info, {card}): p50 {h['p50_ms']:.3f} ms, "
               f"p99 {h['p99_ms']:.3f} ms, max {h['max_ms']:.3f} ms; audio-sec/sec at fleet "
-              f"{FLEET} (p50) {rate(h['p50_ms']):.1f}", flush=True)
+              f"{FLEET} (p50) {rate(h['p50_ms']):.1f}{overlap}", flush=True)
     # where step()'s host time goes: the self time of each of the engine's own
     # spans over TIMED_CALLS / 5 more calls ("wait" is the wait for the card's
     # copy of the block; "launch" holds the copies' launches and the
@@ -1922,6 +1927,15 @@ def eager_step(eng, state, mask=None):
                             mask, sh._vad_prob, sh._vad_avail)
 
 
+def _chunk_tally() -> tuple:
+    """The tracer's counts of step_many's chunks so far, and of those still
+    running on the card when the host came to wait for them."""
+    from audioforge_tpu_torch.runtime import tracing
+
+    c = tracing.snapshot()["counters"]
+    return c.get("engine.span_chunks", 0), c.get("engine.span_chunks_hidden", 0)
+
+
 def _tree_diff(a: dict, b: dict, path: str = "") -> list:
     """Paths of the leaves of two trees of one layout that are not equal."""
     out = []
@@ -1945,7 +1959,11 @@ def phase7_graph_vs_eager(card: str) -> None:
     Engine B runs the same schedule through step_pipelined() and
     flush_pipeline(): the same blocks, one call later, and the same final
     state (the streams attached at block 10 are left out of the block check:
-    they also receive block 9, which is in flight when they attach)."""
+    they also receive block 9, which is in flight when they attach).
+    Engine C runs it through step_many over the spans between the events:
+    every stream's blocks and the final state equal step()'s, each call's
+    blocks views of one ``[span, N, BLOCK]`` array, one ``engine.span_chunks``
+    a chunk."""
     from audioforge_tpu_torch.ops import eq
     from audioforge_tpu_torch.runtime import serving as sv
 
@@ -2030,6 +2048,31 @@ def phase7_graph_vs_eager(card: str) -> None:
           f"{'equal' if same else 'DIFFER'} over {FULL_BLOCKS} blocks; state leaves that "
           f"differ {state_apart}", flush=True)
     check(same and not state_apart, "step_pipelined delivers other blocks than step()")
+
+    # step_many over the spans between the events: chunks of CHUNK_BLOCKS
+    # blocks, filled and delivered while the card runs the next. The EQ
+    # program staged on slot 13 as it is reset lands a call later, which is
+    # block 41 only if a call ends there
+    many, many_outs = build()
+    bounds = (0, 10, 20, 25, 30, 35, 40, 41, FULL_BLOCKS)
+    chunks0 = _chunk_tally()
+    one_array = True
+    for a, b in zip(bounds, bounds[1:]):
+        events(many, many_outs, a)
+        many.step_many(b - a)
+        bases = {id(o[-1].base) for o in many_outs if o}
+        one_array &= len(bases) == 1 and many_outs[0][-1].base.shape == (b - a, FLEET, BLOCK)
+    chunks, hidden = np.subtract(_chunk_tally(), chunks0)
+    want = sum(-(-(b - a) // sv.CHUNK_BLOCKS) for a, b in zip(bounds, bounds[1:]))
+    same = all(np.array_equal(np.concatenate(many_outs[i]), np.concatenate(outs[i]))
+               for i in range(FLEET))
+    state_apart = _tree_diff(many._shards[0]._state, eng._shards[0]._state)
+    print(f"[7] step_many over {len(bounds) - 1} spans against step(): {FLEET} streams "
+          f"{'equal' if same else 'DIFFER'} over {FULL_BLOCKS} blocks; state leaves that "
+          f"differ {state_apart}; one array a call {one_array}; chunks {chunks} (want "
+          f"{want}), hidden {hidden}", flush=True)
+    check(same and not state_apart and one_array and chunks == want and hidden <= chunks,
+          "step_many delivers other blocks than step()")
 
 
 DFN_EAGER_BLOCKS = 20

@@ -154,6 +154,77 @@ def test_step_many_matches_repeated_step():
     np.testing.assert_array_equal(outs["step_many"], outs["step"])
 
 
+CHUNK = tsv.CHUNK_BLOCKS
+
+
+@pytest.mark.parametrize("n_blocks,shards", [(1, 1), (CHUNK, 1), (2 * CHUNK + 3, 1),
+                                             (2 * CHUNK + 3, 2)])
+def test_chunked_step_many_matches_repeated_step(n_blocks, shards):
+    """``step_many(n)``, a pipeline over chunks of CHUNK blocks, against n x
+    ``step()``, bit for bit, with what lands at the call's start: a slot
+    reset, an EQ program staged and a control write on slot 0, slot 3
+    detached; slot 1 runs out of audio inside the span. Every block of the
+    call is a view of one ``[n, N, BLOCK]`` array, and audio a sink pushes
+    during the call stays queued for the next one."""
+    from audioforge_tpu_torch.ops import eq
+
+    boost = [eq.EqBandConfig(b.filter_type, b.frequency_hz, 6.0 if i == 6 else 0.0, 1.0)
+             for i, b in enumerate(eq.default_bands())]
+    rng = np.random.default_rng(70 + n_blocks)
+    audio = (0.2 * rng.standard_normal((4, (n_blocks + 1) * T))).astype(np.float32)
+    short = T + n_blocks * T // 2 + 100   # slot 1: a partial block inside the span
+    runs = {}
+    for mode in ("step", "step_many"):
+        kw = ({"sharding": fleet_mesh(devices=["cpu"] * 2)} if shards == 2
+              else {"device": "cpu"})
+        eng = tsv.ServingEngine(tsv.ServingConfig(
+            capacity=4, suppressor_model=None,
+            chain=tlc.LiveChainConfig(gate_enabled=False, compressor_enabled=False)), **kw)
+        got = {i: [] for i in range(4)}
+        bases, pushing = [], []
+
+        def sink(i):
+            def take(blk):
+                got[i].append(blk.copy())
+                bases.append(blk.base)
+                if pushing and i == 1:
+                    eng.push(1, np.full(T, 0.5, np.float32))
+            return take
+
+        for i in range(4):
+            assert eng.attach(sink=sink(i)) == i
+            eng.push(i, audio[i, :short] if i == 1 else audio[i])
+        eng.step()
+        eng.detach(2)
+        assert eng.attach(sink=sink(2)) == 2
+        eng.push(2, audio[2])
+        eng.set_stream_eq(0, boost)
+        eng.set_stream_params(0, limiter_ceiling_db=-12.0)
+        eng.detach(3)
+        bases.clear()
+        if mode == "step":
+            metrics = [eng.step() for _ in range(n_blocks)][-1]
+        else:
+            pushing.append(True)
+            metrics = eng.step_many(n_blocks)
+            assert all(b is bases[0] for b in bases)
+            assert bases[0].shape == (n_blocks, 4, T)
+            # the sink's pushes wait for the next call
+            assert eng._slots[1].pending.size == n_blocks * T
+        diag = [eng.stream_diagnostics(i) for i in range(3)]
+        runs[mode] = (got, metrics, diag, eng.steps)
+    (got_s, m_s, d_s, steps_s), (got_m, m_m, d_m, steps_m) = runs["step"], runs["step_many"]
+    for i in range(4):
+        assert len(got_m[i]) == len(got_s[i]) == 1 + n_blocks * (i != 3)
+        np.testing.assert_array_equal(np.stack(got_m[i]), np.stack(got_s[i]))
+    assert set(m_m) == set(m_s) and all(torch.equal(m_m[k], m_s[k]) for k in m_s)
+    for a, b in zip(d_m, d_s):
+        assert (a["blocks_processed"], a["underrun_count"]) == (
+            b["blocks_processed"], b["underrun_count"])
+    assert d_m[1]["underrun_count"] == -(-(n_blocks * T - (short - T)) // T)
+    assert steps_m == steps_s == n_blocks + 1
+
+
 def _dry_engine(capacity=2):
     """A suppressor-less engine: the chain only, cheaper on CPU."""
     return tsv.ServingEngine(tsv.ServingConfig(capacity=capacity,

@@ -170,6 +170,60 @@ def test_reset_spans_follow_the_engines_pending_work(spans_on):
     assert tracing.snapshot()["counters"] == {}
 
 
+def _chunk_counts():
+    counters = tracing.snapshot()["counters"]
+    return counters.get("engine.span_chunks", 0), counters.get("engine.span_chunks_hidden", 0)
+
+
+def test_span_chunks_count_step_many_chunks_only():
+    """``engine.span_chunks`` grows by ceil(n / CHUNK_BLOCKS) a
+    ``step_many(n)`` and not at all in ``step()`` or ``step_pipelined()``;
+    the hidden chunks are some of them."""
+    eng = _engine(2)
+    c = tsv.CHUNK_BLOCKS
+    for _ in range(2):
+        eng.push(eng.attach(sink=lambda block: None), np.zeros(8 * c * BLOCK, np.float32))
+    for call, chunks in ((eng.step, 0), (eng.step_pipelined, 0), (eng.step_pipelined, 0),
+                         (lambda: eng.step_many(1), 1), (lambda: eng.step_many(c), 1),
+                         (lambda: eng.step_many(c + 1), 2),
+                         (lambda: eng.step_many(2 * c + 3), 3)):
+        before = _chunk_counts()
+        call()
+        after = _chunk_counts()
+        assert after[0] - before[0] == chunks
+        assert after[1] - before[1] <= chunks and after[1] <= after[0]
+    eng.flush_pipeline()
+
+
+class _Event:
+    def __init__(self, done):
+        self.done = done
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+
+@pytest.mark.parametrize("events,hidden", [([], 0), ([True], 0), ([False], 1),
+                                           ([True, False], 1), ([False, False], 1)])
+def test_a_chunk_is_hidden_when_a_shard_still_runs_it(events, hidden):
+    """A chunk counts as hidden when any shard's event has not completed at
+    the host's wait, once; its blocks are then written and delivered."""
+    eng = _engine(1)
+    got = []
+    eng.attach(sink=got.append)
+    targets = [(0, eng._slots[0], eng._slots[0].generation)]
+    yh = torch.arange(2 * BLOCK, dtype=torch.float32).reshape(1, 2, 1, BLOCK)
+    out = np.zeros((3, 1, BLOCK), np.float32)
+    before = _chunk_counts()[1]
+    eng._land_chunk(out, (yh, [_Event(e) for e in events], 1, 3), targets, False)
+    assert _chunk_counts()[1] - before == hidden
+    np.testing.assert_array_equal(out[1:, 0], yh[0, :, 0].numpy())
+    assert [b.base is out for b in got] == [True, True]
+
+
 def test_stage_marks_come_in_order():
     eng = _engine(1)
     sh = eng._shards[0]
