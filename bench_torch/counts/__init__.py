@@ -197,3 +197,59 @@ def step_totals(config: dict, n: int, root: Path) -> dict:
     return {"f32_ops": f32, "f64_ops": f64,
             "peak_s": f32 / PEAKS["f32_flops_per_s"] + f64 / PEAKS["f64_flops_per_s"],
             "bound_s": sum(s.bound_s() for s in stages)}
+
+
+# --- the offline chain --------------------------------------------------------
+
+# the true-peak interpolator: 4 phases of 32 taps, multiply-adds a sample
+TP_MACS = 4 * 32
+
+
+def chain_stages(config: dict, n: int) -> list:
+    """The stages of one 20 ms analysis block of ``n`` candidate streams of
+    the offline chain under ``config`` (a configuration file's dict with the
+    flat ``settings`` of ``simulate_auto_eq_chain`` and its ``bands``), each
+    with its launches, bytes and operations: the de-esser, the EQ's active
+    sections (a band at 0 dB is dropped), the compressor with its loudness
+    meter's K-weighting (2 sections), the lookahead limiter's window maximum
+    and gain scan, the true-peak limiter's gain scan and its input and output
+    interpolators, the output detector's, and the block's four reductions
+    (input and output sample peaks, the compressor's and the meter's block
+    power)."""
+    s, fs = config["settings"], float(config["sample_rate"])
+    T = round(fs * 0.020)
+    nT = n * T
+
+    def cascade(sections: int) -> Stage:
+        # per section and sample 9 f64 operations; coefficients and f64 state
+        return Stage(f"biquad_cascade x {sections}", 1, 8 * nT + n * sections * (40 + 64 + 8),
+                     0.0, T * 9 * n * sections)
+
+    stages = [Stage("block reductions", 4, 4 * nT + 4 * n, 2 * nT),
+              Stage("true-peak 4x32 FIR", 1, 4 * n * (31 + T) + 4 * nT,
+                    nT * (2 * TP_MACS + 9))]
+    if s.get("deesser_enabled", False):
+        stages.append(Stage("deesser_scan", 1, 8 * nT + n * 4 * 2 * 33, 270 * nT))
+    sections = sum(g != 0 for _, g, _ in config["bands"])
+    if sections:
+        stages.append(cascade(sections))
+    if s.get("compressor_enabled", True):
+        stages += [cascade(2), Stage("compressor_scan", 1, 8 * nT + n * 4 * 2 * 20, 70 * nT)]
+    if s.get("limiter_enabled", True):
+        w = round(s.get("limiter_lookahead_ms", 2.0) * fs / 1000.0)
+        stages += [Stage("limiter window max", 1, 4 * n * (w + T) + 4 * nT, 3 * nT),
+                   Stage("limiter_gain_scan", 2, 12 * nT + n * 4 * 6, 16 * nT),
+                   Stage("true-peak 4x32 FIR", 2, 4 * n * (31 + T) + 4 * nT,
+                         nT * (2 * TP_MACS + 9))]
+    return stages
+
+
+def chain_totals(config: dict, n: int) -> dict:
+    """One analysis block of ``n`` streams of the offline chain: as
+    :func:`step_totals`."""
+    stages = chain_stages(config, n)
+    f32 = sum(s.launches * s.f32_ops for s in stages)
+    f64 = sum(s.launches * s.f64_ops for s in stages)
+    return {"f32_ops": f32, "f64_ops": f64,
+            "peak_s": f32 / PEAKS["f32_flops_per_s"] + f64 / PEAKS["f64_flops_per_s"],
+            "bound_s": sum(s.bound_s() for s in stages)}

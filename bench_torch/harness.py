@@ -535,6 +535,13 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, t_
     replace engine methods (tests plant faults with it). Without
     ``reference`` the check is left to the caller: the result holds the
     probes' data under "probes" and no verdict."""
+    program = load_json(HERE / "configs" / f"{cell['config']}.json").get("program")
+    if program is not None:
+        # a program other than the serving engine runs the whole cell:
+        # programs/<program>.py, with these arguments, returns the result
+        module = importlib.import_module(f"{__package__}.programs.{program}")
+        return module.run_cell(bench, cell, seed, seconds, trace, t_start, device=device,
+                               sizes=sizes, engine_hook=engine_hook, reference=reference)
     config, mix, fleet = cell_files(cell)
     check = dict(config["check"])
     if sizes:

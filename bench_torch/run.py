@@ -3,7 +3,8 @@
     python3 bench_torch/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 Run from the root of a checkout on a machine with a CUDA card: it builds
-the serving engine of the cell's configuration, warms it up, measures for
+the serving engine of the cell's configuration (or the program the
+configuration names, ``bench_torch/programs/``), warms it up, measures for
 ``--seconds`` seconds, checks the probe streams against the plain reference
 and prints one JSON object as its last line of standard output. With no
 card, or fewer than the cell asks for, it exits 2 and prints no result.
@@ -20,6 +21,7 @@ import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+JAX_NAMES = {"jax", "jaxlib", "flax", "audioforge_tpu"}
 # every build and kernel cache inside the checkout, at fixed paths
 for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"), ("TRITON_CACHE_DIR", "triton"),
                  ("CUDA_CACHE_PATH", "cuda_cache")):
@@ -47,6 +49,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     result = harness.run_cell(bench, cell, args.seed, args.seconds, bool(args.trace), T_START)
+    # the port and the benchmark run without the JAX package: a run that
+    # loaded it (or JAX) prints no result
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & JAX_NAMES)
+    if loaded:
+        print(f"the run loaded {', '.join(loaded)}", file=sys.stderr)
+        return 3
     harness.print_result(result)
     return 0
 

@@ -103,3 +103,56 @@ class Traffic:
         """Probe ``j``'s first ``k`` blocks ``[k * 480]``."""
         idx = (self.probe_offset[j] + np.arange(k)) % self.pool_blocks
         return self.pool[self.probe_source[j], idx].reshape(-1)
+
+
+def halton(index: int, base: int) -> float:
+    """The ``index``-th point of the van der Corput sequence in ``base``."""
+    out, scale = 0.0, 1.0
+    while index > 0:
+        scale /= base
+        out += scale * (index % base)
+        index //= base
+    return out
+
+
+def first_wave(incumbent: dict, bounds: dict, sweep: int, points: int) -> list:
+    """A Voice Setup compressor search's first wave (``voice_setup.py``
+    ``_calibrate_compressor``): the incumbent, the incumbent at ``sweep``
+    thresholds spread evenly over the threshold's bounds, and ``points``
+    Halton points (bases 2, 3, 5, 7) over the four parameters' bounds."""
+    lo, hi = bounds["threshold_db"]
+    wave = [dict(incumbent)]
+    wave += [dict(incumbent, threshold_db=float(t)) for t in np.linspace(lo, hi, sweep)]
+    wave += [{k: b[0] + halton(i, base) * (b[1] - b[0])
+              for (k, b), base in zip(bounds.items(), (2, 3, 5, 7))}
+             for i in range(1, points + 1)]
+    return wave
+
+
+class Searches:
+    """A search mix's takes and candidates from ``seed``.
+
+    ``takes`` recorded takes of ``take_seconds`` each, take ``i`` of
+    ``mic_capture``'s class ``i % 4``; call ``c`` renders take ``c % takes``
+    under every candidate of the first wave. Probes: ``probe_calls`` calls,
+    call ``j`` at a drawn share of the window in ``[0, probe_latest)``,
+    rendering a drawn take of class ``j % 4`` in place of its turn's, with
+    ``probe_candidates`` drawn candidates of it kept."""
+
+    def __init__(self, mix: dict, config: dict, seed: int):
+        if mix["signal"] != "mic_capture":
+            raise ValueError(f"unknown signal {mix['signal']!r}")
+        rng = np.random.default_rng([seed, 0x7365])
+        n = int(mix["takes"])
+        blocks = int(round(mix["take_seconds"] * FS / BLOCK))
+        self.takes = mic_capture(n, blocks, int(rng.integers(2**62)))
+        self.candidates = first_wave(config["incumbent"], config["search_bounds"],
+                                     int(mix["threshold_sweep"]), int(mix["halton_points"]))
+        calls, per = int(mix["probe_calls"]), int(mix["probe_candidates"])
+        if n % CLASSES or n < CLASSES:
+            raise ValueError(f"{n} takes do not hold every class alike")
+        self.probe_class = np.arange(calls) % CLASSES
+        self.probe_take = self.probe_class + CLASSES * rng.integers(0, n // CLASSES, calls)
+        self.probe_candidates = np.stack([rng.choice(len(self.candidates), per, replace=False)
+                                          for _ in range(calls)])
+        self.probe_at = np.sort(rng.uniform(0.0, mix["probe_latest"], calls))
