@@ -39,6 +39,17 @@ god-object, `rust-core/src/audio/processor.rs` + `processor/dsp_loop.rs` +
   in ``get_runtime_diagnostics()`` (``rt_error_code`` 4,
   ``last_stream_error``) and a recovery request; a failure of the suppressor
   stage also shows in ``noise_backend_failed()`` / ``noise_backend_error()``.
+- **Spans** (:mod:`.tracing`; off by default). The DSP
+  thread's ``live.burst`` is the root of a burst (attributes ``k``,
+  ``first_sample``: its first sample's stream offset, samples read plus
+  samples discarded since ``start()``), over ``live.front``, ``live.suppressor``,
+  ``live.back``, ``live.publish`` and ``live.condition`` (the output
+  writer and the ring write); ``live.wait`` spans its idle polling from the
+  first empty poll to the next burst; ``live.vad_window`` is a window of
+  the VAD worker and ``live.output`` a callback of the output thread
+  (``underrun``). The engine's own counters (``get_runtime_diagnostics``)
+  count blocks, underruns and backlog drops; a capture shows as a
+  ``replay.capture`` span under the burst.
 
 ``AudioProcessor()`` runs on the card unless given ``device="cpu"``; without
 a CUDA device it raises.
@@ -63,6 +74,7 @@ from ..ops import gate as gate_ops
 from ..ops import mixdown as mixdown_ops
 from ..ops import eq as eq_ops
 from . import live_chain as lc
+from . import tracing
 from .output_writer import OUTPUT_PRIME_MS, OutputWriteController
 from .replay import copy_into
 from .ringbuffer import AudioRing
@@ -740,28 +752,31 @@ class AudioProcessor:
             time.sleep(0.002)
         next_at = time.perf_counter()
         while not self._stop_event.is_set():
-            block = self._out_ring.read(BLOCK)
-            with self._lock:
-                if block.size < BLOCK:
-                    self._counters["output_underrun_total"] += 1
-                    self._counters["output_underrun_streak"] += 1
-                    fill = np.full(BLOCK - block.size, last_sample, np.float32)
-                    block = np.concatenate([block, fill])
-                else:
-                    self._counters["output_underrun_streak"] = 0
-                self._counters["output_callback_at"] = time.perf_counter()
-                muted = self._output_muted
-            last_sample = float(block[-1]) if block.size else last_sample
-            if muted:
-                block = np.zeros_like(block)
-            # calibration probes render post-mute, like the reference's
-            # output-callback probe path (`output.rs:322-346`)
-            block = self._mix_probe(np.asarray(block, np.float32))
-            try:
-                sink(block)
-            except Exception:
+            with tracing.span("live.output") as callback:
+                block = self._out_ring.read(BLOCK)
+                underrun = block.size < BLOCK
                 with self._lock:
-                    self._counters["output_callback_error_count"] += 1
+                    if underrun:
+                        self._counters["output_underrun_total"] += 1
+                        self._counters["output_underrun_streak"] += 1
+                        fill = np.full(BLOCK - block.size, last_sample, np.float32)
+                        block = np.concatenate([block, fill])
+                    else:
+                        self._counters["output_underrun_streak"] = 0
+                    self._counters["output_callback_at"] = time.perf_counter()
+                    muted = self._output_muted
+                callback.set(underrun=underrun)
+                last_sample = float(block[-1]) if block.size else last_sample
+                if muted:
+                    block = np.zeros_like(block)
+                # calibration probes render post-mute, like the reference's
+                # output-callback probe path (`output.rs:322-346`)
+                block = self._mix_probe(np.asarray(block, np.float32))
+                try:
+                    sink(block)
+                except Exception:
+                    with self._lock:
+                        self._counters["output_callback_error_count"] += 1
             if self.realtime_pacing:
                 next_at += period
                 delay = next_at - time.perf_counter()
@@ -828,18 +843,19 @@ class AudioProcessor:
             if self._vad_ring.available() < win:
                 time.sleep(0.005)  # 5 ms idle (`vad_worker.rs`)
                 continue
-            samples = self._vad_ring.read(win)
-            with self._lock:
-                pre_gain = self._params["vad_pre_gain"]
-            state, prob = silero.vad_stream_process(
-                state, samples * np.float32(pre_gain)
-            )
-            with self._lock:
-                self._vad_state = {
-                    "probability": float(prob),
-                    "timestamp": time.perf_counter(),
-                    "available": True,
-                }
+            with tracing.span("live.vad_window"):
+                samples = self._vad_ring.read(win)
+                with self._lock:
+                    pre_gain = self._params["vad_pre_gain"]
+                state, prob = silero.vad_stream_process(
+                    state, samples * np.float32(pre_gain)
+                )
+                with self._lock:
+                    self._vad_state = {
+                        "probability": float(prob),
+                        "timestamp": time.perf_counter(),
+                        "available": True,
+                    }
 
     def _record_failure(self, message: str) -> None:
         with self._lock:
@@ -1024,6 +1040,8 @@ class AudioProcessor:
                         + (step_samples - BLOCK))
 
         host_blocks = self._host_block_multiple
+        stream_pos = 0  # samples read plus samples discarded since start()
+        waiting = None  # the open live.wait span
         while not self._stop_event.is_set():
             avail = self._in_ring.available()
             if avail < host_blocks * BLOCK:
@@ -1034,164 +1052,177 @@ class AudioProcessor:
                     self._dsp_ready.set()
                     first = False
                     continue
+                if waiting is None:
+                    # one span from the first empty poll to the next burst
+                    waiting = tracing.span("live.wait")
+                    waiting.__enter__()
                 with self._lock:
                     self._counters["dsp_idle_wakeup_count"] += 1
                     self._counters["dsp_idle_sleep_us"] = idle_us
                 time.sleep(idle_us / 1e6)
                 idle_us = min(idle_us * 2.0, IDLE_SLEEP_MAX_US)
                 continue
+            if waiting is not None:
+                waiting.__exit__(None, None, None)
+                waiting = None
             idle_us = IDLE_SLEEP_MIN_US
+            with tracing.span("live.burst") as burst:
+                # backlog drop (`dsp_loop.rs:917-950`)
+                if avail > backlog_drop:
+                    to_drop = avail - backlog_keep
+                    dropped = self._in_ring.discard(to_drop)
+                    with self._lock:
+                        self._counters["input_backlog_recovery_count"] += 1
+                        self._counters["input_backlog_dropped_samples"] += dropped
+                    stream_pos += dropped
+                    writer.mark_discontinuity()
+                    avail = self._in_ring.available()
 
-            # backlog drop (`dsp_loop.rs:917-950`)
-            if avail > backlog_drop:
-                to_drop = avail - backlog_keep
-                dropped = self._in_ring.discard(to_drop)
+                # Control snapshot between bursts: new values go into the static
+                # parameter tensors before the burst's first replay, never
+                # between two replays of one burst.
                 with self._lock:
-                    self._counters["input_backlog_recovery_count"] += 1
-                    self._counters["input_backlog_dropped_samples"] += dropped
-                writer.mark_discontinuity()
-                avail = self._in_ring.available()
-
-            # Control snapshot between bursts: new values go into the static
-            # parameter tensors before the burst's first replay, never
-            # between two replays of one burst.
-            with self._lock:
-                dirty = self._params_dirty or self._topology_dirty
-                bypass = self._bypass
-                raw_monitor = self._raw_monitor
-            if dirty:
-                new_config, params, topo, par, pending_eq = (
-                    self._snapshot_control()
-                )
-                if new_config != config:
-                    fresh = None
-                    if (
-                        new_config.gate_mode != config.gate_mode
-                        or new_config.cleanup_mode != config.cleanup_mode
-                    ):
-                        # path change resets stage state
-                        # (`dsp_loop.rs:1052-1114`)
-                        fresh = lc.live_init(new_config, eq_bands=self._eq_bands,
-                                             n=1, device=self._device)
-                        for key in ("routing", "gate", "vad"):
-                            copy_into(state[key], fresh[key])
-                    if new_config.deesser != config.deesser:
-                        fresh = fresh or lc.live_init(
-                            new_config, eq_bands=self._eq_bands, n=1,
-                            device=self._device)
-                        copy_into(state["deesser"], fresh["deesser"])
-                    config = new_config
-                for band_index, band_cfg in pending_eq:
-                    eq_bands[band_index] = band_cfg
-                    try:
-                        copy_into(state["eq"], eq_ops.eq_set_band(
-                            state["eq"], band_index, band_cfg,
-                            float(SAMPLE_RATE), layout=eq_layout,
-                        ))
-                    except ValueError:
-                        # band outgrew its compact slot (non-pass -> pass
-                        # type change): rebuild the cascade with the new
-                        # layout — new section shapes, so every cached graph
-                        # goes (`dsp_loop.rs:1052-1114` path reselect)
-                        eq_layout = eq_ops.eq_layout(eq_bands)
-                        state["eq"] = eq_ops.eq_init(
-                            eq_bands, float(SAMPLE_RATE), layout=eq_layout,
-                            n=1, device=self._device,
+                    dirty = self._params_dirty or self._topology_dirty
+                    bypass = self._bypass
+                    raw_monitor = self._raw_monitor
+                if dirty:
+                    new_config, params, topo, par, pending_eq = (
+                        self._snapshot_control()
+                    )
+                    if new_config != config:
+                        fresh = None
+                        if (
+                            new_config.gate_mode != config.gate_mode
+                            or new_config.cleanup_mode != config.cleanup_mode
+                        ):
+                            # path change resets stage state
+                            # (`dsp_loop.rs:1052-1114`)
+                            fresh = lc.live_init(new_config, eq_bands=self._eq_bands,
+                                                 n=1, device=self._device)
+                            for key in ("routing", "gate", "vad"):
+                                copy_into(state[key], fresh[key])
+                        if new_config.deesser != config.deesser:
+                            fresh = fresh or lc.live_init(
+                                new_config, eq_bands=self._eq_bands, n=1,
+                                device=self._device)
+                            copy_into(state["deesser"], fresh["deesser"])
+                        config = new_config
+                    for band_index, band_cfg in pending_eq:
+                        eq_bands[band_index] = band_cfg
+                        try:
+                            copy_into(state["eq"], eq_ops.eq_set_band(
+                                state["eq"], band_index, band_cfg,
+                                float(SAMPLE_RATE), layout=eq_layout,
+                            ))
+                        except ValueError:
+                            # band outgrew its compact slot (non-pass -> pass
+                            # type change): rebuild the cascade with the new
+                            # layout — new section shapes, so every cached graph
+                            # goes (`dsp_loop.rs:1052-1114` path reselect)
+                            eq_layout = eq_ops.eq_layout(eq_bands)
+                            state["eq"] = eq_ops.eq_init(
+                                eq_bands, float(SAMPLE_RATE), layout=eq_layout,
+                                n=1, device=self._device,
+                            )
+                            self._graphs.clear()
+                    if topo["noise_model"] != engine["model"]:
+                        engine = supp.engine_init(
+                            topo["noise_model"], par["suppressor_strength"],
+                            device=self._device,
                         )
-                        self._graphs.clear()
-                if topo["noise_model"] != engine["model"]:
-                    engine = supp.engine_init(
-                        topo["noise_model"], par["suppressor_strength"],
-                        device=self._device,
+                        supp_delay = np.zeros(
+                            engine["latency_samples"], np.float32
+                        )
+                    engine = supp.engine_set_strength(
+                        engine, par["suppressor_strength"]
                     )
-                    supp_delay = np.zeros(
-                        engine["latency_samples"], np.float32
-                    )
-                engine = supp.engine_set_strength(
-                    engine, par["suppressor_strength"]
-                )
-                self._engine = engine
+                    self._engine = engine
 
-            # Backlog drain: when a full burst is waiting the engine catches
-            # up with a burst of k blocks (k replays of the same graphs, one
-            # copy each way) — audio is only *discarded* past the 250 ms
-            # hard threshold above. Two spans exist: the host step and the
-            # cap (default 8 blocks = 80 ms).
-            span = host_blocks
-            if (avail >= self._max_drain_blocks * BLOCK
-                    and self._max_drain_blocks > host_blocks):
-                span = self._max_drain_blocks
+                # Backlog drain: when a full burst is waiting the engine catches
+                # up with a burst of k blocks (k replays of the same graphs, one
+                # copy each way) — audio is only *discarded* past the 250 ms
+                # hard threshold above. Two spans exist: the host step and the
+                # cap (default 8 blocks = 80 ms).
+                span = host_blocks
+                if (avail >= self._max_drain_blocks * BLOCK
+                        and self._max_drain_blocks > host_blocks):
+                    span = self._max_drain_blocks
 
-            x = self._in_ring.read(span * BLOCK)
-            if x.size < span * BLOCK:
-                x = np.pad(x, (0, span * BLOCK - x.size))
+                x = self._in_ring.read(span * BLOCK)
+                if x.size < span * BLOCK:
+                    x = np.pad(x, (0, span * BLOCK - x.size))
+                burst.set(k=span, first_sample=stream_pos)
+                stream_pos += span * BLOCK
 
-            # recording tap + VAD tee run on every path — calibration
-            # records raw input while bypassed (`dsp_loop.rs:1255-1283`,
-            # `1359-1369`)
-            self._tap_recording(x)
-            self._vad_ring.write(x)
+                # recording tap + VAD tee run on every path — calibration
+                # records raw input while bypassed (`dsp_loop.rs:1255-1283`,
+                # `1359-1369`)
+                self._tap_recording(x)
+                self._vad_ring.write(x)
 
-            started = time.perf_counter()
-            if raw_monitor:
-                y = x
-            elif bypass:
-                y = np.clip(np.nan_to_num(x), -1.0, 1.0)
-            else:
-                state, y, engine, supp_delay = self._process_block(
-                    config, params, state,
-                    x.reshape(span, BLOCK), engine, supp_delay, topo,
-                )
-                self._engine = engine
-            dsp_ms = (time.perf_counter() - started) * 1e3 / span
-            smoothed_dsp_ms = 0.9 * smoothed_dsp_ms + 0.1 * dsp_ms
-            self._dsp_times.extend([dsp_ms] * span)
-
-            with self._lock:
-                if not raw_monitor and not bypass:
-                    burst_gr = self._last_burst_gr or (
-                        [self._metrics["limiter_gain_reduction_db"]] * span
-                    )
-                    burst_tp = self._last_burst_tp or (
-                        [self._metrics["tp_gain_reduction_db"]] * span
-                    )
+                started = time.perf_counter()
+                if raw_monitor:
+                    y = x
+                elif bypass:
+                    y = np.clip(np.nan_to_num(x), -1.0, 1.0)
                 else:
-                    burst_gr = (
-                        [self._metrics["limiter_gain_reduction_db"]] * span
+                    state, y, engine, supp_delay = self._process_block(
+                        config, params, state,
+                        x.reshape(span, BLOCK), engine, supp_delay, topo,
                     )
-                    burst_tp = [self._metrics["tp_gain_reduction_db"]] * span
-                # one history entry per block, even across bursts
-                for gr_v, tp_v in zip(burst_gr, burst_tp):
-                    gr_hist.pop(0)
-                    tp_hist.pop(0)
-                    gr_hist.append(gr_v)
-                    tp_hist.append(tp_v)
-                self._metrics["limiter_gr_history_db"] = list(gr_hist)
-                self._metrics["tp_gr_history_db"] = list(tp_hist)
-                self._metrics["dsp_time_ms"] = dsp_ms
-                self._metrics["dsp_time_smoothed_ms"] = smoothed_dsp_ms
-                self._metrics["dsp_drain_span_blocks"] = span
-                self._counters["blocks_processed"] += span
+                    self._engine = engine
+                dsp_ms = (time.perf_counter() - started) * 1e3 / span
+                smoothed_dsp_ms = 0.9 * smoothed_dsp_ms + 0.1 * dsp_ms
+                self._dsp_times.extend([dsp_ms] * span)
 
-            # output-writer conditioning: drift retime toward the queue
-            # target, discontinuity fade after drops
-            conditioned = writer.condition(
-                np.asarray(y, np.float32), self._out_ring.available(),
-                blocks=span,
-            )
-            self._out_ring.write(conditioned)
-            with self._lock:
-                self._counters["output_retime_adjustment_count"] = (
-                    writer.retime_adjustment_count
-                )
-                self._counters["jitter_dropped_samples"] = (
-                    writer.jitter_dropped_samples
-                )
-            if first:
-                engine = self._warm(config, params, state, engine, topo)
-                self._engine = engine
-                self._dsp_ready.set()
-                first = False
+                with self._lock:
+                    if not raw_monitor and not bypass:
+                        burst_gr = self._last_burst_gr or (
+                            [self._metrics["limiter_gain_reduction_db"]] * span
+                        )
+                        burst_tp = self._last_burst_tp or (
+                            [self._metrics["tp_gain_reduction_db"]] * span
+                        )
+                    else:
+                        burst_gr = (
+                            [self._metrics["limiter_gain_reduction_db"]] * span
+                        )
+                        burst_tp = [self._metrics["tp_gain_reduction_db"]] * span
+                    # one history entry per block, even across bursts
+                    for gr_v, tp_v in zip(burst_gr, burst_tp):
+                        gr_hist.pop(0)
+                        tp_hist.pop(0)
+                        gr_hist.append(gr_v)
+                        tp_hist.append(tp_v)
+                    self._metrics["limiter_gr_history_db"] = list(gr_hist)
+                    self._metrics["tp_gr_history_db"] = list(tp_hist)
+                    self._metrics["dsp_time_ms"] = dsp_ms
+                    self._metrics["dsp_time_smoothed_ms"] = smoothed_dsp_ms
+                    self._metrics["dsp_drain_span_blocks"] = span
+                    self._counters["blocks_processed"] += span
+
+                # output-writer conditioning: drift retime toward the queue
+                # target, discontinuity fade after drops
+                with tracing.span("live.condition"):
+                    conditioned = writer.condition(
+                        np.asarray(y, np.float32), self._out_ring.available(),
+                        blocks=span,
+                    )
+                    self._out_ring.write(conditioned)
+                    with self._lock:
+                        self._counters["output_retime_adjustment_count"] = (
+                            writer.retime_adjustment_count
+                        )
+                        self._counters["jitter_dropped_samples"] = (
+                            writer.jitter_dropped_samples
+                        )
+                if first:
+                    engine = self._warm(config, params, state, engine, topo)
+                    self._engine = engine
+                    self._dsp_ready.set()
+                    first = False
+        if waiting is not None:
+            waiting.__exit__(None, None, None)
 
     def _process_block(self, config, params, state, x, engine, supp_delay,
                        topo):
@@ -1209,14 +1240,41 @@ class AudioProcessor:
         age_ms = (time.perf_counter() - vad["timestamp"]) * 1e3
         vad_fresh = vad["available"] and age_ms <= VAD_STALE_MS
 
-        graphs = self._graphs_for(config, params, state)
-        new_state, y, fm = lc.front_run(
-            config, params, state, x, vad["probability"], vad_fresh,
-            replay=graphs["front"],
-        )
+        with tracing.span("live.front"):
+            graphs = self._graphs_for(config, params, state)
+            new_state, y, fm = lc.front_run(
+                config, params, state, x, vad["probability"], vad_fresh,
+                replay=graphs["front"],
+            )
+            y_np = np.asarray(y).ravel()
+        with tracing.span("live.suppressor"):
+            engine, y_np, supp_delay = self._suppress(
+                engine, y_np, supp_delay, topo, total)
+        with tracing.span("live.back"):
+            # per-block auto-makeup evidence: the noise-floor values carry the
+            # burst axis from front_run; the VAD posterior is the same worker
+            # snapshot for every block in the burst (10 ms cadence, 500 ms
+            # staleness budget — an 80 ms burst stays well inside it)
+            evidence = {
+                "vad_probability": np.full(k, vad["probability"], np.float32),
+                "vad_reliability": np.full(k, 1.0 if vad_fresh else 0.0, np.float32),
+                "noise_floor_db": fm["noise_floor_db"],
+                "live_noise_reliability": fm["noise_floor_reliability"],
+            }
+            new_state, y2, bm = lc.back_run(
+                config, params, new_state, np.asarray(y_np).reshape(k, BLOCK),
+                evidence, replay=graphs["back"],
+            )
+            out = np.asarray(y2).ravel()
+        with tracing.span("live.publish"):
+            self._publish(fm, bm)
+        return new_state, out, engine, supp_delay
 
-        y_np = np.asarray(y).ravel()
-
+    def _suppress(self, engine, y_np, supp_delay, topo, total):
+        """The suppressor engine over a burst's ``total`` samples (push,
+        process, pop and the in-band failure guard), or the delay line that
+        keeps the chain's latency when it is off. Returns ``(engine, out,
+        supp_delay)``."""
         if topo["suppressor_enabled"]:
             engine, _ = self._suppressor_call(supp.engine_push, engine, y_np)
             engine, _ = self._suppressor_call(supp.engine_process, engine)
@@ -1266,32 +1324,15 @@ class AudioProcessor:
                     guard["nonfinite_events"] = []
                     with self._lock:
                         self._counters["output_recovery_count"] += 1
-            y_np = out
-        else:
-            # keep chain latency constant when the suppressor is off
-            joined = np.concatenate([supp_delay, y_np])
-            y_np = joined[:total]
-            supp_delay = joined[total:]
+            return engine, out, supp_delay
+        # keep chain latency constant when the suppressor is off
+        joined = np.concatenate([supp_delay, y_np])
+        return engine, joined[:total], joined[total:]
 
-        # per-block auto-makeup evidence: the noise-floor values carry the
-        # burst axis from front_run; the VAD posterior is the same worker
-        # snapshot for every block in the burst (10 ms cadence, 500 ms
-        # staleness budget — an 80 ms burst stays well inside it)
-        evidence = {
-            "vad_probability": np.full(k, vad["probability"], np.float32),
-            "vad_reliability": np.full(k, 1.0 if vad_fresh else 0.0, np.float32),
-            "noise_floor_db": fm["noise_floor_db"],
-            "live_noise_reliability": fm["noise_floor_reliability"],
-        }
-        new_state, y2, bm = lc.back_run(
-            config, params, new_state, np.asarray(y_np).reshape(k, BLOCK),
-            evidence, replay=graphs["back"],
-        )
-        out = np.asarray(y2).ravel()
-
-        # publish metrics (host floats from the halves' output rows, one
-        # fetch each per burst) — gauges report the burst's last block,
-        # counts sum over it
+    def _publish(self, fm, bm):
+        """Publish the burst's metrics (host floats from the halves' output
+        rows, one fetch each per burst): gauges report the burst's last
+        block, counts sum over it."""
         m = {}
         m["input_peak_db"] = float(fm["input_peak_db"][-1])
         m["input_rms_db"] = float(fm["input_rms_db"][-1])
@@ -1365,7 +1406,6 @@ class AudioProcessor:
                     float(bm["output_clip_peak_db"].max()),
                 )
             self._metrics["output_true_peak_events"] += tp_events
-        return new_state, out, engine, supp_delay
 
     # ---- recording tap / output probe ---------------------------------
 

@@ -6,9 +6,10 @@ engine's ``step_many`` its chunks (``engine.span_chunks``) and those still
 running on the card when the host came to wait for them
 (``engine.span_chunks_hidden``). Spans (:func:`span`) record
 only between :func:`enable` and :func:`disable`; while they are off,
-:func:`span` returns one shared null context, so an off span costs a flag
-check. Samples (:func:`sample`), the serving engine's device time per stage
-of its graph replay, are also taken only while spans are on.
+:func:`span` returns one shared null span, so an off span costs a flag
+check. A span's ``set`` adds attributes once they are known (a no-op on
+the null span). Samples (:func:`sample`), the serving engine's device time
+per stage of its graph replay, are also taken only while spans are on.
 
 A span records its name, start and end, its id, its parent (the span open
 on the same thread when it started), the thread, its call (the id of the
@@ -24,24 +25,38 @@ same stretch. Spans do not go through ``torch.profiler.record_function``,
 whose ranges a CUDA trace also shows as device annotations.
 
 :func:`snapshot` is the only way out: spans, counters and samples as plain
-lists and dicts. :func:`reset` clears them;
-:func:`self_ns` sums a snapshot's spans' self time by name.
+lists and dicts. :func:`reset` clears them; :func:`clock_ns` reads the
+spans' clock now (valid after :func:`enable`); :func:`self_ns` sums a
+snapshot's spans' self time by name.
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import itertools
 import threading
 import time
 
 __all__ = ["RING", "Tracer", "TRACER", "enable", "disable", "enabled", "span", "count",
-           "sample", "current_call", "snapshot", "reset", "self_ns"]
+           "clock_ns", "sample", "current_call", "snapshot", "reset", "self_ns"]
 
 RING = 65536
 
-_NULL = contextlib.nullcontext()
+
+class _NullSpan:
+    """The span that spans off return: records nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_NULL = _NullSpan()
 
 
 class _Span:
@@ -70,6 +85,10 @@ class _Span:
         tr._record((self.name, self.start + off, end + off, self.id, self.parent,
                     threading.get_ident(), self.call, self.attrs))
         return False
+
+    def set(self, **attrs) -> None:
+        """Add ``attrs`` to the span's attributes."""
+        self.attrs.update(attrs)
 
 
 class Tracer:
@@ -108,7 +127,7 @@ class Tracer:
 
     def span(self, name: str, **attrs):
         """A context manager that records ``name`` over its block while spans
-        are on; the shared null context while they are off."""
+        are on; the shared null span while they are off."""
         if not self.on:
             return _NULL
         return _Span(self, name, attrs)
@@ -122,6 +141,11 @@ class Tracer:
         """Add ``k`` to counter ``name`` (always on)."""
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + k
+
+    def clock_ns(self) -> int:
+        """Now on the spans' clock: ``perf_counter_ns`` plus the offset taken
+        at :meth:`enable`."""
+        return time.perf_counter_ns() + self._offset
 
     def sample(self, name: str, value: float) -> None:
         """Record ``value`` under ``name`` with its time, while spans are on."""
@@ -160,6 +184,7 @@ enable = TRACER.enable
 disable = TRACER.disable
 span = TRACER.span
 count = TRACER.count
+clock_ns = TRACER.clock_ns
 sample = TRACER.sample
 current_call = TRACER.current_call
 snapshot = TRACER.snapshot

@@ -309,3 +309,101 @@ def test_counts_and_span_stacks_hold_across_threads():
         parent = by_id[s["parent"]]
         assert parent["name"] == "outer" and parent["thread"] == s["thread"]
         assert s["call"] == parent["id"]
+
+
+LIVE_CHILDREN = ["live.front", "live.suppressor", "live.back", "live.publish",
+                 "live.condition"]
+# the engine's own counters that the spans have to agree with
+LIVE_COUNTERS = ("input_backlog_recovery_count", "output_underrun_total")
+
+
+class _FloodThenTrickle:
+    """A virtual microphone that floods the engine (no pacing) for its first
+    120 callbacks, so that it drains bursts and drops backlog, then comes
+    every 30 ms, so that the DSP thread waits for it."""
+
+    def __init__(self):
+        self.calls = 0
+        self.rng = np.random.default_rng(17)
+
+    def __call__(self, n):
+        self.calls += 1
+        if self.calls > 120:
+            time.sleep(0.03)
+        return (0.05 * self.rng.standard_normal(n)).astype(np.float32)
+
+
+def _live_run(seen=lambda snap, counters: True, timeout_s=30.0) -> tuple:
+    """The live engine on the CPU (a short chain: no gate, compressor or
+    suppressor) unpaced, bursts of up to 4 blocks, until ``seen(snapshot,
+    the engine's counters)`` or ``timeout_s``; the tracer's snapshot and the
+    engine's counters after ``stop()``."""
+    from audioforge_tpu_torch.runtime import processor as proc
+
+    source = _FloodThenTrickle()
+    proc.register_virtual_input("trace-mic", lambda: source)
+    proc.register_virtual_output("trace-sink", lambda: (lambda block: time.sleep(0.001)))
+    p = proc.AudioProcessor(device="cpu")
+    p.realtime_pacing = False
+    p._max_drain_blocks = 4
+    for off in (p.set_gate_enabled, p.set_compressor_enabled, p.set_rnnoise_enabled):
+        off(False)
+    p.start("trace-mic", "trace-sink")
+    t0 = time.perf_counter()
+    try:
+        while (not seen(tracing.snapshot(), dict(p._counters))
+               and time.perf_counter() - t0 < timeout_s):
+            time.sleep(0.02)
+    finally:
+        p.stop()
+    assert not any(t.is_alive() for t in p._threads)
+    return tracing.snapshot(), dict(p._counters)
+
+
+def _live_seen(snap, counters) -> bool:
+    names = {s["name"] for s in snap["spans"]}
+    ks = [s["attrs"].get("k", 1) for s in snap["spans"] if s["name"] == "live.burst"]
+    return (all(counters[c] for c in LIVE_COUNTERS) and any(k > 1 for k in ks)
+            and {"live.wait", "live.vad_window"} <= names)
+
+
+def test_live_engine_spans_and_counters(spans_on):
+    """Every burst is one ``live.burst`` tree (its stages in order) whose
+    ``first_sample`` advances by its blocks plus the samples dropped; the
+    engine's own counters agree with the spans; the wait, the VAD worker's
+    windows and the output callbacks have spans of their own, on their own
+    threads."""
+    snap, c = _live_run(_live_seen)
+    assert snap["dropped_spans"] == 0
+    assert all(c[name] for name in LIVE_COUNTERS), c
+    spans = snap["spans"]
+    bursts = [s for s in spans if s["name"] == "live.burst"]
+    assert bursts and all(set(b["attrs"]) == {"k", "first_sample"} for b in bursts)
+    assert all(b["parent"] is None for b in bursts)
+    ks = [b["attrs"]["k"] for b in bursts]
+    assert sum(ks) == c["blocks_processed"] and max(ks) > 1
+    firsts = np.array([b["attrs"]["first_sample"] for b in bursts])
+    gaps = np.diff(firsts) - BLOCK * np.array(ks[:-1])
+    assert (gaps >= 0).all() and firsts[0] + gaps.sum() == c["input_backlog_dropped_samples"]
+    for b in bursts:
+        children = sorted((s for s in spans if s["parent"] == b["id"]),
+                          key=lambda s: s["start_ns"])
+        assert [s["name"] for s in children] == LIVE_CHILDREN
+        assert all(s["thread"] == b["thread"] for s in children)
+    dsp = bursts[0]["thread"]
+    waits = [s for s in spans if s["name"] == "live.wait"]
+    assert all(s["thread"] == dsp and s["parent"] is None for s in waits)
+    outputs = [s for s in spans if s["name"] == "live.output"]
+    assert all(set(s["attrs"]) == {"underrun"} for s in outputs)
+    assert sum(s["attrs"]["underrun"] for s in outputs) == c["output_underrun_total"]
+    vad = [s for s in spans if s["name"] == "live.vad_window"]
+    assert len({dsp, outputs[0]["thread"], vad[0]["thread"]}) == 3
+
+
+def test_live_engine_spans_off_record_nothing():
+    tracing.disable()
+    tracing.reset()
+    snap, c = _live_run(lambda snap, counters: counters["blocks_processed"] >= 8)
+    assert snap["spans"] == [] and snap["dropped_spans"] == 0
+    assert c["blocks_processed"] >= 8
+    tracing.reset()
