@@ -5,19 +5,22 @@ topology with the reference's flat weight keys and layouts): a 960-point
 STFT at 480 hop with the vorbis window; 32 rectangular ERB bands of log
 power with an exponential mean norm and the unit-normed complex spectrum of
 the 96 low bins as features; a separable-conv ERB encoder with skips, a
-grouped-linear GRU bottleneck, an ERB-gain decoder (the transposed convs as
-correlations over the zero-inserted input, with the converted kernels) and a
-deep-filtering decoder emitting order-5 complex FIR taps for the low bins.
+grouped-linear GRU bottleneck, an ERB-gain decoder (the transposed convs with
+the converted kernels) and a deep-filtering decoder emitting order-5 complex
+FIR taps for the low bins.
 The low-latency variant applies a frame's gains to that frame; the standard
 variant (a state with ``spec_queue``) applies them to the spectrum of frame
 t-2.
 
-Per frame the model runs two kernels with the FFTs, convolutions and GEMMs
+Per frame the model runs two kernels with the FFTs, conv units and GEMMs
 between them: :func:`dfn_features` (power, ERB means, the norms and both
 feature sets after the rfft) and :func:`dfn_spec_synth` (post filter, ERB
 spread, the deep filter on the low bins and the attenuation limit before the
 irfft). Each launches its CUDA kernel for a CUDA tensor and runs its plain
-twin for a CPU tensor.
+twin for a CPU tensor. No convolution op runs: every conv unit is a dense
+GEMM (its grouped and pointwise convs and BatchNorm composed into one weight
+and bias, made once per weight tensor) or a sum of three taps over strided
+views, on channels-last activations ``[N, F, C]``.
 
 :func:`dfn_frames` runs a take frame by frame (one CUDA graph replay a frame
 on the card). The ``processor_*`` functions are the reference's frame-staging
@@ -39,6 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import kernels
 from ..runtime.replay import BlockReplay, run_take
@@ -482,63 +486,135 @@ def weights_source(low_latency: bool = True) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Layers (the reference's layouts: [B, C, F] frames, [kt, B, C, F] windows)
+# Layers. Activations are channels-last, ``[N, F, C]``; the state's windows
+# keep the reference's ``[N, time, C, F]``. No convolution op runs: each conv
+# unit is a dense GEMM over the window's or the activation's own layout, and
+# a depthwise conv is a sum of three taps over strided views.
 # ---------------------------------------------------------------------------
 
-
-def _bn(p, key, x):
-    """Inference BatchNorm over the channel axis of ``[..., C, F]``."""
-    g = p[f"{key}.bn.g"][:, None]
-    b = p[f"{key}.bn.b"][:, None]
-    m = p[f"{key}.bn.m"][:, None]
-    v = p[f"{key}.bn.v"][:, None]
-    return (x - m) * torch.rsqrt(v + _BN_EPS) * g + b
+# a unit's weight tensor -> (its other tensors, its GEMM form); made at the
+# unit's first eager call (a graph capture's warm-up), then read by address by
+# every replay, as _consts is
+_UNITS = WeakIdKeyDictionary()
+_UNIT_LEAVES = ("pw", "bn.g", "bn.b", "bn.m", "bn.v")
 
 
-def _freq_conv(w_tap, x, stride, groups):
-    """One time tap ``[O, I/g, kf]`` over the freq axis of ``x [B, C, F]``,
-    'same' padding."""
-    return F.conv1d(x, w_tap, stride=stride, padding=w_tap.shape[-1] // 2, groups=groups)
+def _bn_fold(p, key):
+    """Inference BatchNorm of unit ``key`` as a per-channel ``(scale,
+    shift)``, in f64."""
+    g, b, m, v = (p[f"{key}.bn.{leaf}"].double() for leaf in "gbmv")
+    scale = g * torch.rsqrt(v + _BN_EPS)
+    return scale, b - m * scale
+
+
+def _fold(w, pw, scale, shift, groups):
+    """A conv unit's GEMM form, composed in f64 and stored in f32, with the
+    BatchNorm's scale folded into the output channels and its shift made the
+    bias. A depthwise ``(1, kf)`` conv followed by a pointwise one gives
+    ``(taps [kf, C], pointwise [C, O], bias [O])``; any other unit ``(weight
+    [kt * I * kf, O], bias [O])``, its grouped conv and pointwise conv
+    composed into one dense map whose rows run over (time, input channel,
+    freq tap)."""
+    o, ig, kt, kf = w.shape
+    f32 = lambda *ts: tuple(t.float().contiguous() for t in ts)
+    if pw is not None and groups == o and ig == 1 and kt == 1:
+        return f32(w[:, 0, 0].T, (pw[:, :, 0, 0].double() * scale[:, None]).T, shift)
+    og = o // groups
+    dense = w.new_zeros((o, ig * groups, kt, kf), dtype=torch.float64)
+    for j in range(groups):
+        dense[j * og:(j + 1) * og, j * ig:(j + 1) * ig] = w[j * og:(j + 1) * og]
+    if pw is not None:
+        dense = torch.einsum("op,pitk->oitk", pw[:, :, 0, 0].double(), dense)
+    return f32((dense * scale[:, None, None, None]).permute(2, 1, 3, 0).reshape(-1, o), shift)
+
+
+def _unit(p, key, groups=1):
+    """The GEMM form (:func:`_fold`) of conv unit ``key`` of the weights
+    ``p``, made once for the unit's tensors: a tensor replaced in ``p`` makes
+    it anew."""
+    w = p[f"{key}.w"]
+    rest = tuple(p.get(f"{key}.{leaf}") for leaf in _UNIT_LEAVES)
+    hit = _UNITS.get(w)
+    if hit is None or any(a is not b for a, b in zip(hit[0], rest)):
+        hit = _UNITS[w] = (rest, _fold(w, rest[0], *_bn_fold(p, key), groups))
+    return hit[1]
 
 
 def _activate(y, act):
     if act == "relu":
-        return torch.relu(y)
+        return y.relu_()
     if act == "sigmoid":
-        return torch.sigmoid(y)
+        return y.sigmoid_()
     return y
 
 
-def _conv_window(p, key, x, stride=1, groups=1, act="relu"):
-    """Conv2dNormAct producing one frame from the causal window ``x [B, C,
-    kt, F]`` (oldest first): the grouped conv over all taps, the optional
-    pointwise conv, BatchNorm and the activation. ``[B, O, F']``."""
-    w = p[f"{key}.w"]
-    y = F.conv2d(x, w, stride=(1, stride), padding=(0, w.shape[-1] // 2),
-                 groups=groups)[:, :, 0]
-    if f"{key}.pw" in p:
-        y = _freq_conv(p[f"{key}.pw"][:, :, 0, :], y, 1, 1)
-    return _activate(_bn(p, key, y), act)
+def _cols(x, axis):
+    """The rows of a 'same' (.., 3) conv over the freq axis ``axis`` of ``x
+    [N, ...]``: ``[N * F, K]``, one row an output bin's three-bin
+    neighbourhood over x's other axes in their order, the freq tap last."""
+    pad = [0, 0] * (x.ndim - 1 - axis) + [1, 1]
+    u = F.pad(x, pad).unfold(axis, 3, 1)
+    return u.movedim(axis, 1).reshape(x.shape[0] * x.shape[axis], -1)
 
 
-def _conv_step(p, key, frames, stride=1, groups=1, act="relu"):
-    """:func:`_conv_window` on the reference's ``[kt, B, C, F]`` window."""
-    return _conv_window(p, key, frames.permute(1, 2, 0, 3), stride, groups, act)
+def _gemm(unit, rows, act="relu"):
+    """``act(rows @ weight + bias)`` of a unit's dense form."""
+    weight, bias = unit
+    return _activate(torch.addmm(bias, rows, weight), act)
 
 
-def _convt_step(p, key, x):
+def _conv_window(unit, win, act="relu"):
+    """Conv2dNormAct producing one frame from the causal window ``win [N, T,
+    C, F]`` (oldest first), 'same' over freq: ``[N, F, O]``. A kf-3 unit
+    runs one GEMM over the unfolded window, a kf-1 unit one GEMM a stream
+    over the window's own layout."""
+    weight, bias = unit
+    n, t, c, f = win.shape
+    if weight.shape[0] == t * c:
+        y = torch.baddbmm(bias, win.reshape(n, t * c, f).mT, weight.expand(n, -1, -1))
+        return _activate(y, act)
+    return _gemm(unit, _cols(win, 3), act).view(n, f, -1)
+
+
+def _pointwise(weight, bias, x):
+    """A 1x1 conv with its BatchNorm and ReLU over ``x [N, F, C]``: one
+    GEMM."""
+    n, f, c = x.shape
+    return _gemm((weight, bias), x.reshape(n * f, c)).view(n, f, -1)
+
+
+def _depthwise(x, taps, stride):
+    """Depthwise (1, 3) conv over the freq axis of ``x [N, F, C]``, 'same'
+    padding, ``taps [3, C]``: the three taps' products summed over strided
+    views. ``[N, (F - 1) // stride + 1, C]``."""
+    fo = (x.shape[1] - 1) // stride + 1
+    y = x[:, ::stride] * taps[1]
+    right = x[:, 1::stride]
+    y[:, :right.shape[1]].addcmul_(right, taps[2])
+    y[:, 1:].addcmul_(x[:, stride - 1::stride][:, :fo - 1], taps[0])
+    return y
+
+
+def _separable(unit, x, stride=1):
+    """A depthwise (1, 3) unit with its pointwise conv, BatchNorm and ReLU
+    over ``x [N, F, C]``."""
+    taps, weight, bias = unit
+    return _pointwise(weight, bias, _depthwise(x, taps, stride))
+
+
+def _convt(unit, x):
     """ConvTranspose2dNormAct, freq stride 2, kernel (1, 3), depthwise +
-    pointwise + BN + ReLU, ``[B, C, F]`` -> ``[B, C, 2F]``: a correlation of
-    the converted (re-laid-out and flipped) kernel over the input with zeros
-    inserted between its samples, padded by 1 on the left and 2 on the right
-    (``lhs_dilation`` 2, padding (1, 2))."""
-    w = p[f"{key}.w"][:, :, 0, :]  # [O, 1, 3]
-    B, C, Fr = x.shape
-    dilated = torch.stack([x, torch.zeros_like(x)], dim=-1).reshape(B, C, 2 * Fr)
-    y = F.conv1d(F.pad(dilated, (1, 1)), w, groups=w.shape[0])
-    if f"{key}.pw" in p:
-        y = _freq_conv(p[f"{key}.pw"][:, :, 0, :], y, 1, 1)
-    return torch.relu(_bn(p, key, y))
+    pointwise + BN + ReLU, ``[N, F, C]`` -> ``[N, 2F, C]``. The converted
+    kernel's correlation over the input with zeros inserted, without the
+    zeros: output ``2m`` is the middle tap of ``x[m]``, output ``2m + 1``
+    the outer taps of ``x[m]`` and ``x[m + 1]`` (0 past the end)."""
+    taps, weight, bias = unit
+    n, f, c = x.shape
+    y = x.new_empty(n, f, 2, c)
+    torch.mul(x, taps[1], out=y[:, :, 0])
+    torch.mul(x, taps[0], out=y[:, :, 1])
+    y[:, :-1, 1].addcmul_(x[:, 1:], taps[2])
+    return _pointwise(weight, bias, y.view(n, 2 * f, c))
 
 
 def _glinear_apply(w, x):
@@ -562,13 +638,13 @@ def _gru_step(p, key, x, h):
 
 
 def _flatten_fc(x):
-    """``[B, C, F]`` -> ``[B, F * C]`` (freq-major, channel-minor)."""
-    return x.transpose(-1, -2).reshape(*x.shape[:-2], -1)
+    """``[N, F, C]`` -> ``[N, F * C]`` (freq-major, channel-minor): a view."""
+    return x.reshape(x.shape[0], -1)
 
 
 def _unflatten_cf(x, f):
-    """``[B, F * C]`` -> ``[B, C, F]``, the inverse of :func:`_flatten_fc`."""
-    return x.reshape(*x.shape[:-1], f, x.shape[-1] // f).transpose(-1, -2)
+    """``[N, F * C]`` -> ``[N, F, C]``, the inverse of :func:`_flatten_fc`."""
+    return x.view(x.shape[0], f, -1)
 
 
 def _post_filter(gains, beta):
@@ -728,15 +804,16 @@ def _dfn_analyze(p, state, x_frame):
     feat_erb, feat_spec, erb_norm, unit_norm = dfn_features(
         spec, state["erb_norm"], state["unit_norm"])
 
-    # --- encoder (windows [N, time, C, F], oldest first) ---
+    # --- encoder (windows [N, time, C, F], oldest first; out [N, F, C]) ---
     erb_win = torch.cat([state["erb_feat_hist"], feat_erb[:, None, None, :]], dim=1)
     spec_win = torch.cat([state["spec_feat_hist"], feat_spec[:, None]], dim=1)
-    e0 = _conv_window(p, "enc.erb_conv0", erb_win.transpose(1, 2))          # [N, C, 32]
-    e1 = _conv_window(p, "enc.erb_conv1", e0[:, :, None], 2, CONV_CH)       # [N, C, 16]
-    e2 = _conv_window(p, "enc.erb_conv2", e1[:, :, None], 2, CONV_CH)       # [N, C, 8]
-    e3 = _conv_window(p, "enc.erb_conv3", e2[:, :, None], 1, CONV_CH)       # [N, C, 8]
-    c0 = _conv_window(p, "enc.df_conv0", spec_win.transpose(1, 2), 1, 2)    # [N, C, 96]
-    c1 = _conv_window(p, "enc.df_conv1", c0[:, :, None], 2, CONV_CH)        # [N, C, 48]
+    sep = lambda key, x, stride=1: _separable(_unit(p, key, CONV_CH), x, stride)
+    e0 = _conv_window(_unit(p, "enc.erb_conv0"), erb_win)                  # [N, 32, C]
+    e1 = sep("enc.erb_conv1", e0, 2)                                        # [N, 16, C]
+    e2 = sep("enc.erb_conv2", e1, 2)                                        # [N, 8, C]
+    e3 = sep("enc.erb_conv3", e2)                                           # [N, 8, C]
+    c0 = _conv_window(_unit(p, "enc.df_conv0", 2), spec_win)                # [N, 96, C]
+    c1 = sep("enc.df_conv1", c0, 2)                                         # [N, 48, C]
 
     cemb = torch.relu(_glinear_apply(p["enc.df_fc_emb.w"], _flatten_fc(c1)))
     emb = _flatten_fc(e3) + cemb                                            # [N, 512]
@@ -750,16 +827,14 @@ def _dfn_analyze(p, state, x_frame):
     d_in = torch.relu(_glinear_apply(p["erb_dec.emb_gru.lin_in.w"], emb))
     dec_h = _gru_step(p, "erb_dec.emb_gru.gru_l0", d_in, state["erb_dec_gru"])
     demb = torch.relu(_glinear_apply(p["erb_dec.emb_gru.lin_out.w"], dec_h))
-    skip = lambda key, e: _conv_window(p, key, e[:, :, None])
-    x3 = _conv_window(p, "erb_dec.convt3",
-                      (skip("erb_dec.conv3p", e3) + _unflatten_cf(demb, 8))[:, :, None],
-                      1, CONV_CH)                                           # [N, C, 8]
-    x2 = _convt_step(p, "erb_dec.convt2", skip("erb_dec.conv2p", e2) + x3)  # [N, C, 16]
-    x1 = _convt_step(p, "erb_dec.convt1", skip("erb_dec.conv1p", e1) + x2)  # [N, C, 32]
-    mask = _conv_window(p, "erb_dec.conv0_out",
-                        (skip("erb_dec.conv0p", e0) + x1)[:, :, None], 1, 1,
-                        act="sigmoid")                                      # [N, 1, 32]
-    erb_gains = mask[:, 0]
+    skip = lambda key, e, x: _pointwise(*_unit(p, key), e).add_(x)
+    x3 = sep("erb_dec.convt3", skip("erb_dec.conv3p", e3, _unflatten_cf(demb, 8)))  # [N, 8, C]
+    convt = lambda key, x: _convt(_unit(p, key, CONV_CH), x)
+    x2 = convt("erb_dec.convt2", skip("erb_dec.conv2p", e2, x3))           # [N, 16, C]
+    x1 = convt("erb_dec.convt1", skip("erb_dec.conv1p", e1, x2))           # [N, 32, C]
+    erb_gains = _gemm(_unit(p, "erb_dec.conv0_out"),
+                      _cols(skip("erb_dec.conv0p", e0, x1), 1),
+                      "sigmoid").view(-1, NB_ERB)                           # [N, 32]
 
     # --- deep-filtering decoder ---
     h = torch.relu(_glinear_apply(p["df_dec.df_gru.lin_in.w"], emb))
@@ -768,11 +843,10 @@ def _dfn_analyze(p, state, x_frame):
         h = _gru_step(p, f"df_dec.df_gru.gru_l{layer}", h, state["df_gru"][:, layer])
         df_h.append(h)
     coefs = torch.tanh(_glinear_apply(p["df_dec.df_out.w"], h))
-    coefs = coefs.reshape(-1, NB_DF, DF_ORDER * 2)
-    c0_win = torch.cat([state["c0_hist"], c0[:, None]], dim=1)             # [N, 5, C, 96]
-    cp = _conv_window(p, "df_dec.df_convp", c0_win.transpose(1, 2), 1, 2)   # [N, 10, 96]
-    coefs = coefs + cp.transpose(-1, -2)                                    # [N, 96, 10]
-    df_coefs = coefs.reshape(-1, NB_DF, DF_ORDER, 2).transpose(1, 2).contiguous()
+    c0_win = torch.cat([state["c0_hist"], c0.mT[:, None]], dim=1)          # [N, 5, C, 96]
+    cp = _conv_window(_unit(p, "df_dec.df_convp", 2), c0_win)              # [N, 96, 10]
+    coefs = cp.add_(coefs.view(-1, NB_DF, DF_ORDER * 2))
+    df_coefs = coefs.view(-1, NB_DF, DF_ORDER, 2).transpose(1, 2).contiguous()
 
     new_partial = {
         "analysis_mem": x_frame,

@@ -1685,7 +1685,90 @@ def phase_model_path(card: str, name: str, tag: str) -> dict:
     print(f"{tag} output finite, peak {peak:.4f} within the ceiling; {MODEL_BLOCKS} blocks in "
           f"{time.perf_counter() - t0:.1f} s with the engine's set-up", flush=True)
     time_paths(eng, outs, audio, card, tag, MODEL_TIMED_CALLS)
+    if name == "DFN3-LL":
+        for n in (FLEET, 1):
+            dfn_frame_rows(card, tag, n)
     return counts
+
+
+# kernel names of cuDNN's engines: its own namespace, its implicit-GEMM
+# convolutions and its generic convolution kernels
+CUDNN_MARKS = ("cudnn", "fprop", "convolve")
+DFN_FRAME_REPLAYS = 50   # replays timed (CUDA events) and profiled (kernel census)
+DFN_OP_ROWS = 25         # rows of the per-op table
+
+
+def dfn_frame_rows(card: str, tag: str, n: int) -> None:
+    """Information: one DFN3-LL frame (``dfn3.dfn_frame`` with the trained
+    archive) of ``n`` streams after three frames of :func:`voice_and_noise`,
+    captured as a graph: its replay on the card (CUDA events), its output's
+    and gains' error against the same frame on the CPU, the kernels of one
+    replay with those of cuDNN (:data:`CUDNN_MARKS`) counted apart, and the
+    per-op table of the same frame run eagerly (``torch.profiler`` with
+    ``record_shapes``: each aten op that launched kernels, its input shapes,
+    its kernels' ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audioforge_tpu_torch import kernels
+    from audioforge_tpu_torch.models import dfn3
+    from audioforge_tpu_torch.runtime import replay
+
+    cpu = dfn3.default_params(True)
+    params = {k: v.to(DEVICE) for k, v in cpu.items()}
+    x = torch.from_numpy(voice_and_noise(n, 4, 61 + n).reshape(n, 4, BLOCK))
+    st = dfn3.dfn_state_init(n=n, device="cpu")
+    for f in range(3):
+        st, _, _ = dfn3.dfn_frame(cpu, st, x[:, f])
+    _, y_cpu, aux_cpu = dfn3.dfn_frame(cpu, st, x[:, 3])
+    x_dev = x[:, 3].to(DEVICE)
+    controls = [kernels.scalar(v, DEVICE) for v in (dfn3.DEFAULT_ATTEN_LIM_DB,
+                                                    dfn3.DEFAULT_POST_FILTER_BETA)]
+
+    def frame(state):
+        _, y, aux = dfn3.dfn_frame(params, state, x_dev, *controls)
+        return y, aux["erb_gains"]
+
+    state = {k: v.to(DEVICE) for k, v in st.items()}
+    graph, (y, gains), launches, _ = replay.capture_graph(DEVICE, frame, state)
+    graph.replay()
+    torch.cuda.synchronize()
+    y_err = (y.cpu().double() - y_cpu.double()).abs().max().item()
+    g_err = (gains.cpu().double() - aux_cpu["erb_gains"].double()).abs().max().item()
+    ms = cuda_ms(graph.replay, DFN_FRAME_REPLAYS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(DFN_FRAME_REPLAYS):
+            graph.replay()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    per_replay = sum(e.count for e in rows) / DFN_FRAME_REPLAYS
+    cudnn = [e for e in rows if any(m in e.key.lower() for m in CUDNN_MARKS)]
+    cudnn_n = sum(e.count for e in cudnn) / DFN_FRAME_REPLAYS
+    cudnn_ms = sum(e.self_device_time_total for e in cudnn) / DFN_FRAME_REPLAYS / 1e3
+    print(f"{tag} one DFN3-LL frame at {n} stream(s) as a graph (info, {card}): "
+          f"{ms:.4f} ms a replay (CUDA events); error against the CPU frame: output max "
+          f"{y_err:.3e}, ERB gains max {g_err:.3e}; {per_replay:.0f} kernels a replay, "
+          f"{cudnn_n:.0f} of them cuDNN's ({cudnn_ms:.4f} ms); hand kernels {launches}",
+          flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / DFN_FRAME_REPLAYS / 1e3:8.4f} ms "
+              f"{e.count / DFN_FRAME_REPLAYS:4.0f}x  {e.key[:90]}")
+    frame(state)  # warm for the eager profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        frame(state)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in ops) / 1e3
+    print(f"{tag} the same frame run eagerly, by aten op and input shapes (info, {card}): "
+          f"{total:.4f} ms of kernels over {len(ops)} rows; the {DFN_OP_ROWS} longest:",
+          flush=True)
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:DFN_OP_ROWS]:
+        shapes = ", ".join(str(list(s)) for s in e.input_shapes if s)
+        print(f"    {e.self_device_time_total / 1e3:8.4f} ms {e.count:3d}x  {e.key[:32]:32s} "
+              f"{shapes[:110]}")
 
 
 def layer_split(eng, card: str, tag: str) -> None:

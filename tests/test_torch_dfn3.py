@@ -4,18 +4,22 @@ The ERB layout and tables, every layer helper (BatchNorm, the grouped
 'same' freq conv, the causal conv step with its pointwise conv, the
 transposed conv as a correlation over the zero-inserted input, the grouped
 linear, the torch-order GRU cell, the flatten/unflatten pair, the post
-filter) on seeded inputs, and ``dfn_frame`` (the ``dfn_features`` and
-``dfn_spec_synth`` kernels' plain twins with the FFTs, convolutions and
-GEMMs between them) over 8 frames of 2 streams with the trained archives
-``models/dfn3_ll.npz`` and ``models/dfn3.npz``; the JAX frames run once per
-module. Tolerances: layers 1e-5 (f32, another summation order); ERB gains
-and lsnr 1e-3 (the conversion contract of the model ports); audio RMS 1e-4
-and max 1e-3 of full scale; the seeded weights and ERB tables exact.
+filter) on seeded inputs, each conv unit as the port's frame runs it (its
+GEMM form, channels-last, the case's inputs and outputs converted), and
+``dfn_frame`` (the ``dfn_features`` and ``dfn_spec_synth`` kernels' plain
+twins with the FFTs, conv units and GEMMs between them) over 8 frames of 2
+streams with the trained archives ``models/dfn3_ll.npz`` and
+``models/dfn3.npz``; the JAX frames run once per module. A frame dispatches
+no convolution op. Tolerances: layers 1e-5 (f32, another summation order);
+ERB gains and lsnr 1e-3 (the conversion contract of the model ports); audio
+RMS 1e-4 and max 1e-3 of full scale; the seeded weights and ERB tables
+exact.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax.numpy as jnp
 
@@ -120,33 +124,79 @@ def _bn_params(rng, key, c):
             f"{key}.bn.m": rng.normal(0, 0.2, c), f"{key}.bn.v": rng.uniform(0.5, 2, c)}
 
 
+# The port's activations are channels-last ([B, F, C]); the reference's
+# [B, C, F]. The adapters below convert a case's inputs and outputs.
+def _cl(x):
+    return x.transpose(1, 2).contiguous()
+
+
+def _port_bn(p, key, x):
+    scale, shift = tdfn._bn_fold(p, key)
+    return (x.double() * scale[:, None] + shift[:, None]).float()
+
+
+def _port_freq_conv(w, x, stride, groups):
+    """A 'same' conv of one time tap ``w [O, I/g, 3]``: a depthwise one as
+    the port's tap sum, any other as its dense GEMM over the unfolded
+    rows."""
+    if groups == x.shape[1] and w.shape[0] == groups:
+        return tdfn._depthwise(_cl(x), w[:, 0].T, stride).mT
+    ones = torch.ones(w.shape[0], dtype=torch.float64)
+    unit = tdfn._fold(w[:, :, None], None, ones, ones - 1.0, groups)
+    return tdfn._gemm(unit, tdfn._cols(_cl(x), 1), None).view(x.shape[0], x.shape[2], -1).mT
+
+
+def _port_conv_step(p, key, frames, stride=1, groups=1, act="relu"):
+    """The reference's conv step on a window ``[kt, B, C, F]`` as the port's
+    frame runs such a unit."""
+    unit = tdfn._unit(p, key, groups)
+    kt, b, _, f = frames.shape
+    x = _cl(frames[0])
+    if len(unit) == 3:
+        return tdfn._separable(unit, x, stride).mT
+    if kt == 1 and p[f"{key}.w"].shape[-1] == 1:
+        return tdfn._pointwise(*unit, x).mT
+    if kt == 1:
+        return tdfn._gemm(unit, tdfn._cols(x, 1), act).view(b, f, -1).mT
+    return tdfn._conv_window(unit, frames.permute(1, 0, 2, 3), act).mT
+
+
 def _layer_case(name, rng):
     """``(jax fn, torch fn, numpy args)`` of one layer helper; the first arg
     of the BN and conv helpers is a params dict."""
     B, C, Fr = 3, 8, 16
+    if name.endswith("_odd_f"):
+        Fr = 15
     x = rng.normal(0, 1, (B, C, Fr))
     if name == "bn":
-        return jdfn._bn, tdfn._bn, (_bn_params(rng, "u", C), "u", x)
+        return jdfn._bn, _port_bn, (_bn_params(rng, "u", C), "u", x)
     if name.startswith("freq_conv"):
         stride, groups = {"freq_conv": (1, 1), "freq_conv_s2_g8": (2, 8)}[name]
         w = rng.normal(0, 0.3, (C, C // groups, 3))
-        return jdfn._freq_conv, tdfn._freq_conv, (w, x, stride, groups)
+        return jdfn._freq_conv, _port_freq_conv, (w, x, stride, groups)
     if name.startswith("conv_step"):
         kt, stride, groups, sep, act = {
             "conv_step_kt3_g2_pw": (3, 1, 2, True, "relu"),
+            "conv_step_kt3_in1": (3, 1, 1, False, "relu"),
             "conv_step_kt1_s2_dw_pw": (1, 2, C, True, "relu"),
+            "conv_step_kt1_s2_dw_pw_odd_f": (1, 2, C, True, "relu"),
+            "conv_step_kt1_s1_dw_pw": (1, 1, C, True, "relu"),
             "conv_step_kt5_kf1_g2": (5, 1, 2, True, "relu"),
+            "conv_step_kf1_pointwise": (1, 1, 1, False, "relu"),
             "conv_step_out_sigmoid": (1, 1, 1, False, "sigmoid")}[name]
         kf = 1 if "kf1" in name else 3
-        p = {"u.w": rng.normal(0, 0.3, (C, C // groups, kt, kf)), **_bn_params(rng, "u", C)}
+        c_in = 1 if "in1" in name else C
+        p = {"u.w": rng.normal(0, 0.3, (C, c_in // groups, kt, kf)),
+             **_bn_params(rng, "u", C)}
         if sep:
             p["u.pw"] = rng.normal(0, 0.3, (C, C, 1, 1))
-        win = rng.normal(0, 1, (kt, B, C, Fr))
-        return jdfn._conv_step, tdfn._conv_step, (p, "u", win, stride, groups, act)
-    if name == "convt_step":
+        win = rng.normal(0, 1, (kt, B, c_in, Fr))
+        return jdfn._conv_step, _port_conv_step, (p, "u", win, stride, groups, act)
+    if name.startswith("convt_step"):
         p = {"u.w": rng.normal(0, 0.3, (C, 1, 1, 3)), "u.pw": rng.normal(0, 0.3, (C, C, 1, 1)),
              **_bn_params(rng, "u", C)}
-        return jdfn._convt_step, tdfn._convt_step, (p, "u", x)
+        port = lambda p, key, x: tdfn._convt(tdfn._unit(p, key, C), _cl(x)).mT
+        return jdfn._convt_step, port, (p, "u", x)
     if name == "glinear":
         w = rng.normal(0, 0.3, (4, 6, 5))
         return jdfn._glinear_apply, tdfn._glinear_apply, (w, rng.normal(0, 1, (B, 24)))
@@ -157,9 +207,10 @@ def _layer_case(name, rng):
         return (jdfn._gru_step, tdfn._gru_step,
                 (p, "g", rng.normal(0, 1, (B, 10)), rng.normal(0, 1, (B, h))))
     if name == "flatten_fc":
-        return jdfn._flatten_fc, tdfn._flatten_fc, (x,)
+        return jdfn._flatten_fc, lambda x: tdfn._flatten_fc(_cl(x)), (x,)
     if name == "unflatten_cf":
-        return jdfn._unflatten_cf, tdfn._unflatten_cf, (rng.normal(0, 1, (B, C * Fr)), Fr)
+        port = lambda x, f: tdfn._unflatten_cf(x, f).mT
+        return jdfn._unflatten_cf, port, (rng.normal(0, 1, (B, C * Fr)), Fr)
     if name == "post_filter":
         g = rng.uniform(0.0, 1.0, (B, 32))
         return jdfn._post_filter, tdfn._post_filter, (g, 0.04)
@@ -169,7 +220,8 @@ def _layer_case(name, rng):
 LAYERS = ("bn", "freq_conv", "freq_conv_s2_g8", "conv_step_kt3_g2_pw",
           "conv_step_kt1_s2_dw_pw", "conv_step_kt5_kf1_g2", "conv_step_out_sigmoid",
           "convt_step", "glinear", "gru_step", "flatten_fc", "unflatten_cf",
-          "post_filter")
+          "post_filter", "conv_step_kt3_in1", "conv_step_kt1_s2_dw_pw_odd_f",
+          "conv_step_kt1_s1_dw_pw", "conv_step_kf1_pointwise", "convt_step_odd_f")
 
 
 @pytest.mark.parametrize("name", LAYERS)
@@ -187,6 +239,45 @@ def test_layer_helper_matches_reference(name):
     want = np.asarray(jfn(*(conv(a, jnp.asarray) for a in args)))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+class _AtenOps(TorchDispatchMode):
+    """The names of the aten ops dispatched under the mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.add(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("n", (1, 4))
+@pytest.mark.parametrize("variant", ("ll", "standard"))
+def test_dfn_frame_runs_no_convolution(variant, n):
+    """A frame's conv units run as GEMMs and tap sums: no convolution op is
+    dispatched, the units' forms made at the first frame included."""
+    params = convert.dfn_weights(_archive(variant))
+    state = tdfn.dfn_state_init(n=n, lookahead=variant == "standard", device="cpu")
+    x = torch.as_tensor(np.random.default_rng(n).normal(0, 0.1, (n, F)).astype(np.float32))
+    with _AtenOps() as ops:
+        state, y, _ = tdfn.dfn_frame(params, state, x)
+    assert not sorted(op for op in ops.names if "conv" in op)
+    assert {"addmm", "baddbmm", "addcmul_"} <= ops.names
+    assert torch.isfinite(y).all()
+
+
+def test_unit_forms_are_made_once_per_tensor_set():
+    """A unit's GEMM form is kept for its tensors and made anew when one of
+    them is replaced."""
+    p = {k: torch.as_tensor(v) for k, v in tdfn.init_params().items()}
+    first = tdfn._unit(p, "enc.erb_conv1", tdfn.CONV_CH)
+    assert tdfn._unit(p, "enc.erb_conv1", tdfn.CONV_CH) is first
+    p["enc.erb_conv1.bn.b"] = p["enc.erb_conv1.bn.b"] + 1.0
+    again = tdfn._unit(p, "enc.erb_conv1", tdfn.CONV_CH)
+    assert again is not first
+    torch.testing.assert_close(again[2], first[2] + 1.0)
 
 
 def _structured_params(erb_bias: float, df_tap):
