@@ -37,6 +37,7 @@ from ..ops import loudness as loud_ops
 from ..ops import routing as route_ops
 from ..ops import true_peak as tp_ops
 from ..ops import util
+from .chain import effective_limiter_ceiling_db
 from .replay import BlockReplay
 
 __all__ = ["BLOCK_SAMPLES", "SHARED_LEAVES", "LiveChainConfig", "live_params",
@@ -45,7 +46,6 @@ __all__ = ["BLOCK_SAMPLES", "SHARED_LEAVES", "LiveChainConfig", "live_params",
            "front_run", "back_run", "chain_latency_samples"]
 
 BLOCK_SAMPLES = 480
-CAREFUL_OUTPUT_CEILING_DB = -1.5
 
 # paths (inside the chain state) of the leaves every stream shares
 SHARED_LEAVES = frozenset({
@@ -53,14 +53,6 @@ SHARED_LEAVES = frozenset({
     ("out_lufs", "coeffs"),
     ("compressor", "meter", "coeffs"),
 })
-
-
-def effective_limiter_ceiling_db(ceiling_db: float,
-                                 careful_output_enabled: bool) -> float:
-    """The careful-output ceiling caps the limiter at -1.5 dBFS."""
-    if careful_output_enabled:
-        return min(ceiling_db, CAREFUL_OUTPUT_CEILING_DB)
-    return ceiling_db
 
 
 @dataclass(frozen=True)

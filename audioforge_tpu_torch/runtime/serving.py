@@ -18,11 +18,15 @@ captured at the first step (the counterpart of the reference's one jitted
 step), which also copies the new state back into the static state; a slot
 reset, a staged EQ program and a control write are applied to the static
 buffers before the replay. On the CPU the same code calls
-:func:`_serving_step` eagerly in place of the replay. ``step_many`` replays
-the graph once per block of the span, in chunks of :data:`CHUNK_BLOCKS`
-blocks: the host fills chunk j+1 and delivers chunk j-1 while the card runs
-chunk j; ``step_pipelined`` delivers block t-1 while block t runs; ``start``
-runs the free-run loop.
+:func:`_serving_step` eagerly in place of the replay.
+
+Every call form runs one host path: take the slots' audio at the call's
+start, fill a pinned host buffer, launch (the rows to the device, a replay a
+block, one copy back), land (wait, unpack) and deliver to the slots the
+audio was taken from. ``step`` lands its block at once; ``step_pipelined``
+lands block t-1 while block t runs; ``step_many`` runs in chunks of
+:data:`CHUNK_BLOCKS` blocks, filling chunk j+1 and delivering chunk j-1
+while the card runs chunk j; ``start`` runs the free-run loop.
 
 The engine runs on the card unless it is given ``device="cpu"``; without a
 CUDA device, building one for the card raises.
@@ -355,12 +359,13 @@ class _Slot:
 
 class _Shard:
     """The device side of the engine's slots ``[lo, hi)``: their static state,
-    fresh state, control tree and step inputs on ``device``, the CUDA graph
-    of their step and the device events it records (``STAGE_MARKS``)."""
+    fresh state, control tree and step inputs on ``device``, the staging rows
+    of a chunk's input and output, the CUDA graph of their step and the
+    device events it records (``STAGE_MARKS``)."""
 
     __slots__ = ("device", "lo", "hi", "_fresh", "_state", "_params_static", "_params_dev",
-                 "_x", "_active", "_active_host", "_vad_prob", "_vad_avail", "_graph",
-                 "_graph_out", "_graph_launches", "_marks", "capture_seconds")
+                 "_x", "_xs", "_ys", "_active", "_active_host", "_vad_prob", "_vad_avail",
+                 "_graph", "_graph_out", "_graph_launches", "_marks", "capture_seconds")
 
     def __init__(self, device, lo: int, hi: int, fresh: dict, params: dict, weights: dict):
         n = hi - lo
@@ -373,6 +378,10 @@ class _Shard:
         self._params_dev = {k: dict(v, weights=weights[k]) if k in weights else v
                             for k, v in self._params_static.items()}
         self._x = torch.zeros((n, BLOCK), dtype=torch.float32, device=device)
+        # a chunk's input rows [n, blocks, BLOCK] and its output blocks
+        # [blocks, n, BLOCK], flat
+        self._xs = torch.zeros(n * CHUNK_BLOCKS * BLOCK, dtype=torch.float32, device=device)
+        self._ys = torch.zeros_like(self._xs)
         self._active = torch.zeros(n, dtype=torch.bool, device=device)
         self._active_host = np.zeros(n, bool)
         self._vad_prob = torch.zeros(n, dtype=torch.float32, device=device)
@@ -464,8 +473,7 @@ class ServingEngine:
                      for g, ws in weights.items()}))
         self._params_dirty = False
         self._vad_host = (np.zeros(n, np.float32), np.zeros(n, bool))
-        self._host_bufs = {}
-        self._calls = 0
+        self._free_bufs = []
         self._inflight = None
         self._thread = None
         self._running = False
@@ -594,17 +602,6 @@ class ServingEngine:
             self._pending_eq[slot] = fresh_eq
 
     # ---------------------------------------------------------------- step
-    def _host(self, name: str, shape: tuple) -> torch.Tensor:
-        """A host staging buffer, pinned when the engine runs on the card,
-        kept for later steps of the same shape."""
-        key = (name, shape)
-        buf = self._host_bufs.get(key)
-        if buf is None:
-            buf = torch.empty(shape, dtype=torch.float32,
-                              pin_memory=self.device.type == "cuda")
-            self._host_bufs[key] = buf
-        return buf
-
     def _begin_step(self) -> np.ndarray:
         """Under the lock, at a step's start: take the pending slot resets,
         and write the staged EQ programs and the control writes into every
@@ -639,43 +636,13 @@ class ServingEngine:
                     sh._active.copy_(torch.from_numpy(mine), non_blocking=True)
                 sh._active_host = mine
 
-    def _gather(self) -> torch.Tensor:
-        """Stage the next block: apply pending slot resets, staged EQ
-        programs and control writes, and fill a host buffer ``[S, 1, N/S,
-        BLOCK]`` with the slots' input, shard by shard (two buffers in turn,
-        so that a copy still in flight from the previous call is never
-        overwritten)."""
-        n, rows = self.config.capacity, self._rows_per_shard
-        self._calls += 1
-        xh = self._host(f"x{self._calls % 2}", (len(self._shards), 1, rows, BLOCK))
-        x = xh.numpy()
-        x.fill(0.0)
-        active = np.zeros(n, bool)
-        with self._lock:
-            reset = self._begin_step()
-            # shard by shard, so that a slot costs one index as unsharded
-            for xk, lo in zip(x[:, 0], range(0, n, rows)):
-                for r, s in enumerate(self._slots[lo:lo + rows]):
-                    if not s.active:
-                        continue
-                    active[lo + r] = True
-                    take = min(BLOCK, s.pending.size)
-                    if take:
-                        xk[r, :take] = s.pending[:take]
-                        s.pending = s.pending[take:]
-                    if take < BLOCK:
-                        s.underruns += 1
-        self._write_masks(reset, active)
-        return xh
-
     def _take(self, n_blocks: int) -> tuple:
-        """The start of a :meth:`step_many` call: apply pending slot resets,
-        staged EQ programs and control writes, and take up to ``n_blocks``
-        blocks of every active slot's pending audio (an underrun for each
-        block short). Audio pushed later goes to the next step. Returns the
-        taken audio by slot, None for an inactive slot, else ``(full blocks
-        [F, BLOCK], the partial block's samples)``, and the active slots as
-        ``(slot, _Slot, generation)``."""
+        """The start of every call: apply pending slot resets, staged EQ
+        programs and control writes, and take up to ``n_blocks`` blocks of
+        every active slot's pending audio (an underrun for each block
+        short). Audio pushed later goes to the next call. Returns the taken
+        audio by slot (None for an inactive slot) and the call's targets,
+        the active slots as ``(slot, _Slot, generation)``."""
         n = self.config.capacity
         active = np.zeros(n, bool)
         taken, targets = [None] * n, []
@@ -687,39 +654,40 @@ class ServingEngine:
                     continue
                 active[i] = True
                 targets.append((i, s, s.generation))
-                take = min(want, s.pending.size)
-                got, s.pending = s.pending[:take], s.pending[take:]
-                full = take // BLOCK * BLOCK
-                taken[i] = (got[:full].reshape(-1, BLOCK), got[full:])
-                if take < want:
-                    s.underruns += -(-(want - take) // BLOCK)
+                got, s.pending = s.pending[:want], s.pending[want:]
+                taken[i] = got
+                if got.size < want:
+                    s.underruns += -(-(want - got.size) // BLOCK)
         self._write_masks(reset, active)
         return taken, targets
 
-    def _fill(self, xh: torch.Tensor, taken: list, b0: int, b1: int) -> None:
-        """Write the blocks ``[b0, b1)`` of the audio :meth:`_take` took into
-        the host buffer ``xh [S, >= b1 - b0, N/S, BLOCK]``, shard by shard: a
-        slot's full blocks in one copy, then its partial block; zeros only
-        in the blocks a slot lacks and in an inactive slot's rows."""
-        nb, rows = b1 - b0, self._rows_per_shard
-        for k, xk in enumerate(xh.numpy()[:, :nb]):
-            for r, t in enumerate(taken[k * rows:(k + 1) * rows]):
-                if t is None:
-                    xk[:, r] = 0.0
+    def _fill(self, taken: list, b0: int, b1: int) -> torch.Tensor:
+        """A host buffer ``[2, S, N/S * CHUNK_BLOCKS * BLOCK]`` from the pool
+        (pinned when the engine runs on the card) whose input half ``[0]``
+        holds the blocks ``[b0, b1)`` of the audio :meth:`_take` took, each
+        shard's rows as ``[N/S, b1 - b0, BLOCK]`` at its start: a slot's
+        blocks in one copy, zeros only where a slot lacks audio and in an
+        inactive slot's row. The output half ``[1]`` takes the blocks'
+        output, each shard's as ``[b1 - b0, N/S, BLOCK]``. A buffer returns
+        to the pool only in :meth:`_land_chunk`, after the host has waited
+        on the event that follows its last copy and unpacked its output, so
+        a buffer whose copies may still be in flight is never refilled."""
+        rows = self._rows_per_shard
+        buf = self._free_bufs.pop() if self._free_bufs else torch.empty(
+            (2, len(self._shards), rows * CHUNK_BLOCKS * BLOCK), dtype=torch.float32,
+            pin_memory=self.device.type == "cuda")
+        lo, hi = b0 * BLOCK, b1 * BLOCK
+        width = hi - lo
+        for k, xk in enumerate(buf[0].numpy()[:, :rows * width]):
+            xk = xk.reshape(rows, width)
+            for r, got in enumerate(taken[k * rows:(k + 1) * rows]):
+                seg = () if got is None else got[lo:hi]
+                if len(seg) == width:
+                    xk[r] = seg
                     continue
-                blocks, tail = t
-                got = blocks[b0:b1]
-                m = len(got)
-                if m == nb:
-                    xk[:, r] = got
-                    continue
-                if m:
-                    xk[:m, r] = got
-                if tail.size and b0 + m == len(blocks):
-                    xk[m, r, :tail.size] = tail
-                    xk[m, r, tail.size:] = 0.0
-                    m += 1
-                xk[m:, r] = 0.0
+                xk[r, :len(seg)] = seg
+                xk[r, len(seg):] = 0.0
+        return buf
 
     def _write_controls(self, staged: list) -> None:
         """Under the lock: write the staged EQ programs of the slots
@@ -755,6 +723,17 @@ class ServingEngine:
                     sh._vad_avail.copy_(torch.from_numpy(avail[lo:hi].copy()),
                                         non_blocking=True)
         self._vad_host = (prob.copy(), avail.copy())
+
+    def _open(self, n_blocks: int, ext_vad_prob, ext_vad_avail) -> tuple:
+        """The head of every call: under "engine.gather", take the call's
+        audio and fill its first chunk's buffer; under "engine.stage_vad",
+        the external VAD inputs. Returns ``(taken, targets, buffer)``."""
+        with tracing.span("engine.gather"):
+            taken, targets = self._take(n_blocks)
+            buf = self._fill(taken, 0, min(n_blocks, CHUNK_BLOCKS))
+        with tracing.span("engine.stage_vad"):
+            self._stage_vad(ext_vad_prob, ext_vad_avail)
+        return taken, targets, buf
 
     def _step_in_place(self, shard: _Shard, state, mark=None):
         """:func:`_serving_step` on a shard's static inputs, its new state
@@ -804,71 +783,78 @@ class ServingEngine:
         tracing.count("replay.replays")
         return shard._graph_out
 
-    def _launch(self, ext_vad_prob, ext_vad_avail):
-        """Gather the next block, run it and start copying its output to a
-        host buffer (two in turn). Returns what :meth:`_landed` waits on and
-        the block's metrics."""
-        with tracing.span("engine.gather"):
-            xh = self._gather()
-        with tracing.span("engine.stage_vad"):
-            self._stage_vad(ext_vad_prob, ext_vad_avail)
-        yh = self._host(f"y{self._calls % 2}", tuple(xh.shape))
-        with tracing.span("engine.launch"):
-            done, metrics = self._enqueue(xh, yh, 1, True)
-        return (yh, done), metrics
-
-    def _enqueue(self, xh: torch.Tensor, yh: torch.Tensor, n_blocks: int, keep: bool):
-        """Run the blocks ``xh[:, :n_blocks]`` on every shard and queue the
-        copy of their output into ``yh[:, :n_blocks]``: every shard's work is
-        started before any is waited on. Returns the events that follow the
-        shards' copies and, with ``keep``, the last block's metrics (copies
-        that later blocks do not overwrite), else None."""
+    def _enqueue(self, buf: torch.Tensor, b0: int, b1: int, keep: bool) -> tuple:
+        """Run the blocks ``[b0, b1)`` of a call, filled into ``buf`` by
+        :meth:`_fill`, on every shard and queue their output's copy into
+        ``buf[1]``: per shard, the rows to the device's staging rows in one
+        copy, then for each block its copy into the step's input, a run and
+        its output into the staging blocks ``[b1 - b0, N/S, BLOCK]``, then one
+        copy back. Every shard's
+        work is started before any is waited on. Returns the in-flight
+        record ``(buf, the events that follow the shards' copies, b0, b1,
+        metrics)``: with ``keep`` the last block's metrics (copies that later
+        blocks do not overwrite), else None."""
+        nb = b1 - b0
+        size = self._rows_per_shard * nb * BLOCK
         done, metrics = [], []
         for k, sh in enumerate(self._shards):
             with device_scope(sh.device):
-                if n_blocks == 1:
-                    sh._x.copy_(xh[k, 0], non_blocking=True)
+                xs, ys = sh._xs[:size], sh._ys[:size]
+                xs.copy_(buf[0, k, :size], non_blocking=True)
+                for xb, yb in zip(xs.view(-1, nb, BLOCK).unbind(1), ys.view(nb, -1, BLOCK)):
+                    sh._x.copy_(xb)
                     y, m = self._run(sh)
-                    yh[k, 0].copy_(y, non_blocking=True)
-                else:
-                    xs = xh[k, :n_blocks].to(sh.device, non_blocking=True)
-                    ys = torch.empty_like(xs)
-                    for b in range(n_blocks):
-                        sh._x.copy_(xs[b])
-                        y, m = self._run(sh)
-                        ys[b].copy_(y)
-                    yh[k, :n_blocks].copy_(ys, non_blocking=True)
+                    yb.copy_(y)
+                buf[1, k, :size].copy_(ys, non_blocking=True)
                 if keep:
                     metrics.append(_kept(m))
                 if sh.device.type == "cuda":
                     done.append(torch.cuda.Event())
                     done[-1].record()
         if not keep:
-            return done, None
-        if len(metrics) == 1:
-            return done, metrics[0]
-        with device_scope(self.device):
-            return done, {key: torch.cat([m[key].to(self.device) for m in metrics])
-                          for key in metrics[0]}
+            metrics = None
+        elif len(metrics) == 1:
+            metrics = metrics[0]
+        else:
+            with device_scope(self.device):
+                metrics = {key: torch.cat([m[key].to(self.device) for m in metrics])
+                           for key in metrics[0]}
+        return buf, done, b0, b1, metrics
 
-    def _landed(self, fetch, stages: bool, out=None) -> np.ndarray:
-        """The fetched blocks ``[n_blocks, N, BLOCK]`` as a new host array, or
-        written into ``out`` (sinks may keep views). With ``stages`` (the
-        landed block is the last one launched) and spans on, also samples
-        the last replay's device time by stage (:meth:`_sample_stages`)."""
-        buf, done = fetch
+    def _land_chunk(self, out, inflight: tuple, targets: list, stages: bool,
+                    cause=None, overlapped: bool = False):
+        """Land the blocks ``[b0, b1)`` of the in-flight record
+        :meth:`_enqueue` returned: wait for the events that follow their
+        copies, write them into ``out[b0:b1]`` (``out`` None: a new array;
+        sinks may keep views), return the buffer to the pool and deliver the
+        blocks to ``targets``. With ``stages`` (the landed block is the last
+        one launched) and spans on, also samples the last replay's device
+        time by stage (:meth:`_sample_stages`); with ``overlapped`` (a chunk
+        of :meth:`step_many`), counts the chunk in
+        ``engine.span_chunks_hidden`` when a shard still runs it at the
+        wait. ``cause``: the call that launched the blocks, when another
+        call lands them. Returns the record's metrics, which become the
+        engine's last when it kept any."""
+        buf, done, b0, b1, metrics = inflight
+        nb = b1 - b0
+        if overlapped and not all(event.query() for event in done):
+            tracing.count("engine.span_chunks_hidden")
         with tracing.span("engine.wait"):
             for event in done:
                 event.synchronize()
         if stages and tracing.enabled():
             self._sample_stages()
         with tracing.span("engine.unpack"):
-            y = buf.numpy()
-            S, nb, rows, _ = y.shape
-            if out is None:
-                out = np.empty((nb, S * rows, BLOCK), np.float32)
-            out.reshape(nb, S, rows, BLOCK)[...] = y.transpose(1, 0, 2, 3)  # one copy
-        return out
+            ys = (np.empty((nb, self.config.capacity, BLOCK), np.float32) if out is None
+                  else out[b0:b1])
+            S, rows = len(self._shards), self._rows_per_shard
+            y = buf[1, :, :rows * nb * BLOCK].numpy().reshape(S, nb, rows, BLOCK)
+            ys.reshape(nb, S, rows, BLOCK)[...] = y.transpose(1, 0, 2, 3)  # one copy
+        self._free_bufs.append(buf)
+        self._deliver(ys, nb, targets, cause)
+        if metrics is not None:
+            self._last_metrics = metrics
+        return metrics
 
     def _sample_stages(self) -> None:
         """Each shard's last replay, by stage: the device milliseconds between
@@ -890,9 +876,10 @@ class ServingEngine:
         """Advance every stream by one block. Returns per-slot metrics."""
         t0 = time.perf_counter()
         with tracing.span("engine.step", n_blocks=1, shards=len(self._shards)):
-            fetch, metrics = self._launch(ext_vad_prob, ext_vad_avail)
-            self._deliver(self._landed(fetch, True), 1)
-        self._last_metrics = metrics
+            _, targets, buf = self._open(1, ext_vad_prob, ext_vad_avail)
+            with tracing.span("engine.launch"):
+                inflight = self._enqueue(buf, 0, 1, True)
+            metrics = self._land_chunk(None, inflight, targets, True)
         self._record_time(t0, 1)
         return metrics
 
@@ -901,33 +888,33 @@ class ServingEngine:
         delay: block t is launched and its copy to the host queued, then
         block t-1 is delivered once its copy has landed, while block t runs.
         Sinks receive each block one call later than :meth:`step`, with the
-        same audio. Call :meth:`flush_pipeline` (or :meth:`stop`) to deliver
-        the last block. Returns the delivered block's metrics, or None on
-        the first call. The delivery's span ("engine.deliver") names the
-        call that launched its block as its ``cause``."""
+        same audio; a stream detached in between gets none of its last
+        block, and a stream attached in its slot none of it either. Call
+        :meth:`flush_pipeline` (or :meth:`stop`) to deliver the last block.
+        A :meth:`step` or :meth:`step_many` in between leaves the block in
+        flight. Returns the delivered block's metrics, or None on the first
+        call. The delivery's span ("engine.deliver") names the call that
+        launched its block as its ``cause``."""
         t0 = time.perf_counter()
         with tracing.span("engine.step_pipelined", n_blocks=1, shards=len(self._shards)):
-            launched = self._launch(ext_vad_prob, ext_vad_avail) + (tracing.current_call(),)
+            _, targets, buf = self._open(1, ext_vad_prob, ext_vad_avail)
+            with tracing.span("engine.launch"):
+                inflight = self._enqueue(buf, 0, 1, True)
+            held, self._inflight = self._inflight, (inflight, targets, tracing.current_call())
             delivered = None
-            if self._inflight is not None:
-                delivered = self._land(self._inflight)
-            self._inflight = launched
+            if held is not None:
+                inflight, targets, cause = held
+                delivered = self._land_chunk(None, inflight, targets, False, cause)
         self._record_time(t0, 1)
         return delivered
-
-    def _land(self, inflight):
-        fetch, metrics, cause = inflight
-        self._deliver(self._landed(fetch, False), 1, cause)
-        self._last_metrics = metrics
-        return metrics
 
     def flush_pipeline(self):
         """Deliver the block :meth:`step_pipelined` left in flight."""
         if self._inflight is None:
             return None
-        inflight, self._inflight = self._inflight, None
+        (inflight, targets, cause), self._inflight = self._inflight, None
         with tracing.span("engine.flush_pipeline", n_blocks=1, shards=len(self._shards)):
-            return self._land(inflight)
+            return self._land_chunk(None, inflight, targets, False, cause)
 
     def step_many(self, n_blocks: int, ext_vad_prob=None, ext_vad_avail=None):
         """Advance every stream by ``n_blocks`` blocks. The call's input is
@@ -946,59 +933,35 @@ class ServingEngine:
         t0 = time.perf_counter()
         chunks = [(b0, min(b0 + CHUNK_BLOCKS, n_blocks))
                   for b0 in range(0, n_blocks, CHUNK_BLOCKS)]
-        shape = (len(self._shards), chunks[0][1], self._rows_per_shard, BLOCK)
         with tracing.span("engine.step_many", n_blocks=n_blocks, shards=len(self._shards)):
-            with tracing.span("engine.gather"):
-                taken, targets = self._take(n_blocks)
-                xh = self._host("xc0", shape)
-                self._fill(xh, taken, *chunks[0])
-            with tracing.span("engine.stage_vad"):
-                self._stage_vad(ext_vad_prob, ext_vad_avail)
+            taken, targets, buf = self._open(n_blocks, ext_vad_prob, ext_vad_avail)
             out = np.empty((n_blocks, self.config.capacity, BLOCK), np.float32)
             inflight = None
             for j, (b0, b1) in enumerate(chunks):
                 last = j == len(chunks) - 1
-                yh = self._host(f"yc{j % 2}", shape)
                 with tracing.span("engine.launch"):
-                    done, metrics = self._enqueue(xh, yh, b1 - b0, last)
+                    launched = self._enqueue(buf, b0, b1, last)
                 tracing.count("engine.span_chunks")
                 if not last:
-                    # three input buffers: chunk j+1's is chunk j-2's, whose
-                    # output has been waited for
-                    xh = self._host(f"xc{(j + 1) % 3}", shape)
                     with tracing.span("engine.gather"):
-                        self._fill(xh, taken, *chunks[j + 1])
+                        buf = self._fill(taken, *chunks[j + 1])
                 if inflight is not None:
-                    self._land_chunk(out, inflight, targets, False)
-                inflight = (yh, done, b0, b1)
-            self._land_chunk(out, inflight, targets, True)
-        self._last_metrics = metrics
+                    self._land_chunk(out, inflight, targets, False, overlapped=True)
+                inflight = launched
+            metrics = self._land_chunk(out, inflight, targets, True, overlapped=True)
         self._record_time(t0, n_blocks)
         return metrics
 
-    def _land_chunk(self, out: np.ndarray, inflight: tuple, targets: list,
-                    stages: bool) -> None:
-        """Wait for a chunk of :meth:`step_many`, write its output into its
-        rows of the call's array ``out`` and deliver them to ``targets``."""
-        yh, done, b0, b1 = inflight
-        if not all(event.query() for event in done):
-            tracing.count("engine.span_chunks_hidden")
-        ys = self._landed((yh[:, :b1 - b0], done), stages, out[b0:b1])
-        self._deliver(ys, b1 - b0, targets=targets)
-
-    def _deliver(self, ys, n_blocks: int, cause=None, targets=None) -> None:
+    def _deliver(self, ys, n_blocks: int, targets: list, cause=None) -> None:
         """``ys: [n_blocks, N, BLOCK]`` host array -> per-slot sinks.
-        ``cause``: the call id of the step that launched the blocks, when
-        another call delivers them. ``targets``: the ``(slot, _Slot,
-        generation)`` whose audio the blocks are, of which those still
-        attached get them; by default every slot attached now."""
+        ``targets``: the ``(slot, _Slot, generation)`` whose audio the blocks
+        are, of which those still attached, and not attached again since,
+        get them. ``cause``: the call id of the step that launched the
+        blocks, when another call delivers them."""
         with tracing.span("engine.deliver", cause=cause):
             with self._lock:
-                if targets is None:
-                    live = [(i, s) for i, s in enumerate(self._slots) if s.active]
-                else:
-                    live = [(i, s) for i, s, gen in targets
-                            if s.active and s.generation == gen]
+                live = [(i, s) for i, s, gen in targets
+                        if s.active and s.generation == gen]
                 for _, s in live:
                     s.blocks += n_blocks
             for i, s in live:

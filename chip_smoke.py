@@ -59,9 +59,12 @@ a non-zero exit when it fails, and each followed by its wall-clock time:
    ``_serving_step`` called eagerly on the card on the same inputs: every
    block's output and the final state ``torch.equal``; and a second engine
    through step_pipelined() + flush_pipeline() delivers the same blocks as
-   step(), and a third through step_many over the spans between the events
-   (chunks of ``CHUNK_BLOCKS`` blocks) the same blocks, each call's as views
-   of one array, and the same state; then the DeepFilterNet3-LL path at fleet 1024 for 20 blocks with a
+   step() (but a block in flight when its stream detaches), a third through
+   step_many over the spans between the events (chunks of ``CHUNK_BLOCKS``
+   blocks) the same blocks, each call's as views of one array, and the same
+   state, and a fourth through step_pipelined, step, step_many(9),
+   step_pipelined and flush_pipeline the same blocks in the order taken;
+   then the DeepFilterNet3-LL path at fleet 1024 for 20 blocks with a
    slot reset, graph against eager, ``torch.equal`` (held to 1e-5, naming
    the blocks and leaves, where not equal);
 8. VAD-on path: bench.py's VAD cell (strong cleanup, de-esser, VAD-assisted
@@ -145,13 +148,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bench_torch.counts import PEAKS, bound
+from bench_torch.traffic.generator import _voice_on, mic_capture
+
 BLOCK = 480
 FLEET = 1024
 FS = 48000.0
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
-FP64_OPS_PER_S = 34e12      # H100 SXM f64 outside the tensor cores
 FULL_BLOCKS = 60            # hum windows (250 ms) complete at blocks 25 and 50
 ENV_BLOCKS = 50             # env_scan blocks per run (the tool's 50 blocks)
 GATE_BLOCKS = 30            # gate_scan blocks per mode
@@ -224,14 +227,6 @@ def kernel_times(fn, reps: int = 20):
     return cuda_ms(graph.replay, 3) / reps, call_ms
 
 
-def bound(bytes_moved: float, f32_ops: float = 0.0, f64_ops: float = 0.0):
-    """``(bound_ms, bound_by)``: the larger of the bytes' time at the HBM rate
-    and the operations' time at their type's peak."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = max(f32_ops / FP32_OPS_PER_S, f64_ops / FP64_OPS_PER_S)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def speech_like(n: int, n_blocks: int, seed: int) -> np.ndarray:
     """Voiced bursts with per-stream pitch, hiss, and one transient over
     full scale per stream, ``[n, n_blocks * 480]``."""
@@ -249,41 +244,12 @@ def speech_like(n: int, n_blocks: int, seed: int) -> np.ndarray:
     return x.astype(np.float32)
 
 
-def _voice_on(t: np.ndarray, phase) -> np.ndarray:
-    """Where ``mic_capture``'s voice sounds: a 3 Hz on/off envelope."""
-    return np.sin(2 * np.pi * 3.0 * t + phase) > -0.2
-
-
 def voiced_blocks(n_blocks: int, seed: int) -> np.ndarray:
     """Whether the voice of ``mic_capture(1, n_blocks, seed)`` sounds through
     each whole block (its phase is that function's first draw)."""
     phase = np.random.default_rng(seed).uniform(0, 2 * np.pi, (1, 1))
     t = np.arange(n_blocks * BLOCK) / FS
     return _voice_on(t, phase)[0].reshape(n_blocks, BLOCK).all(axis=1)
-
-
-def mic_capture(n: int, n_blocks: int, seed: int) -> np.ndarray:
-    """Four stream classes (i % 4) under a voice: 0 hum at 50.4 Hz with its
-    harmonic, 1 hum at 59.7 Hz, 2 sibilance (0.25 at 6.8 kHz over a 0.05
-    body), 3 low plosive thumps; ``[n, n_blocks * 480]``."""
-    rng = np.random.default_rng(seed)
-    t = np.arange(n_blocks * BLOCK) / FS
-    phase = rng.uniform(0, 2 * np.pi, (n, 1))
-    f0 = rng.uniform(120.0, 200.0, (n, 1))
-    voiced = sum(np.sin(2 * np.pi * f0 * h * t + h * phase) / h for h in range(1, 5))
-    voice = 0.08 * voiced * _voice_on(t, phase)
-    cls = np.arange(n)[:, None] % 4
-    x = voice + 0.003 * rng.standard_normal((n, t.size))
-    x += (cls == 0) * (0.1 * np.sin(2 * np.pi * 50.4 * t + phase)
-                       + 0.03 * np.sin(2 * np.pi * 100.8 * t + phase))
-    x += (cls == 1) * 0.08 * np.sin(2 * np.pi * 59.7 * t + phase)
-    sib = 0.25 * np.sin(2 * np.pi * 6800.0 * t + phase)
-    x = np.where(cls == 2, 0.05 * voiced + sib, x)
-    thump = np.zeros(t.size)
-    for at in range(2000, t.size - 1500, 9000):
-        thump[at:at + 1500] += 0.7 * np.hanning(1500)
-    x += (cls == 3) * thump
-    return x.astype(np.float32)
 
 
 def phase0_device() -> str:
@@ -694,7 +660,7 @@ def phase2_env(res: Results) -> None:
     step_ns = 1e6 * (ms_960 - ms_480) / BLOCK
     print(f"[2] env_scan serial floor {floor_ms:.5f} ms a [{BLOCK}, {B}] block "
           f"({ENV_CHAIN_CYCLES} chain cycles a step x {BLOCK} at the {clock:g} MHz the SM "
-          f"ran env_scan at) beside its bytes bound {1e3 * 8 * BLOCK * B / HBM_BYTES_PER_S:.5f}"
+          f"ran env_scan at) beside its bytes bound {1e3 * 8 * BLOCK * B / PEAKS["hbm_bytes_per_s"]:.5f}"
           f" ms; kernel [{2 * BLOCK}, {B}] {ms_960:.4f} ms a block, so {step_ns:.2f} ns "
           f"({step_ns * clock / 1e3:.1f} cycles) a further step ({res.card})", flush=True)
 
@@ -2041,12 +2007,16 @@ def phase7_graph_vs_eager(card: str) -> None:
     every block's output and the final state must be ``torch.equal``.
     Engine B runs the same schedule through step_pipelined() and
     flush_pipeline(): the same blocks, one call later, and the same final
-    state (the streams attached at block 10 are left out of the block check:
-    they also receive block 9, which is in flight when they attach).
-    Engine C runs it through step_many over the spans between the events:
-    every stream's blocks and the final state equal step()'s, each call's
-    blocks views of one ``[span, N, BLOCK]`` array, one ``engine.span_chunks``
-    a chunk."""
+    state, but for the block in flight when a stream detaches (block 19 of
+    slot 5, block 39 of slot 13), which reaches neither that stream nor the
+    one attached in its slot. Engine C runs it through step_many over the
+    spans between the events: every stream's blocks and the final state
+    equal step()'s, each call's blocks views of one ``[span, N, BLOCK]``
+    array, one ``engine.span_chunks`` a chunk. Engine D runs, without the
+    events, step_pipelined, step, step_many(9), step_pipelined and
+    flush_pipeline, so that step() and step_many take host buffers while
+    the first pipelined block is in flight: every stream's 12 blocks, in
+    the order the engine took them, equal step()'s."""
     from audioforge_tpu_torch.ops import eq
     from audioforge_tpu_torch.runtime import serving as sv
 
@@ -2123,14 +2093,33 @@ def phase7_graph_vs_eager(card: str) -> None:
         events(pipe, pipe_outs, b)
         pipe.step_pipelined()
     pipe.flush_pipeline()
-    kept = range(FLEET - late)
-    same = all(np.array_equal(np.concatenate(pipe_outs[i]), np.concatenate(outs[i]))
-               for i in kept)
+    lost = {5: 19, 13: 39}  # in flight when the slot's stream detached
+    want = [o[:lost[i]] + o[lost[i] + 1:] if i in lost else o for i, o in enumerate(outs)]
+    same = all(len(pipe_outs[i]) == len(want[i]) and np.array_equal(
+        np.concatenate(pipe_outs[i]), np.concatenate(want[i])) for i in range(FLEET))
     state_apart = _tree_diff(pipe._shards[0]._state, eng._shards[0]._state)
-    print(f"[7] step_pipelined + flush_pipeline against step(): {len(kept)} streams "
-          f"{'equal' if same else 'DIFFER'} over {FULL_BLOCKS} blocks; state leaves that "
-          f"differ {state_apart}", flush=True)
+    print(f"[7] step_pipelined + flush_pipeline against step(): {FLEET} streams "
+          f"{'equal' if same else 'DIFFER'} over {FULL_BLOCKS} blocks, the blocks in flight "
+          f"at a detach dropped; state leaves that differ {state_apart}", flush=True)
     check(same and not state_apart, "step_pipelined delivers other blocks than step()")
+
+    # the call forms mixed: step() and step_many take host buffers while the
+    # first pipelined block is in flight. Taken 0, 1, 2-10, 11; delivered 1,
+    # 2-10, 0, 11
+    mixed, mixed_outs = build()
+    mixed.step_pipelined()
+    mixed.step()
+    mixed.step_many(9)
+    mixed.step_pipelined()
+    mixed.flush_pipeline()
+    order = [10, *range(10), 11]
+    same = all(len(mixed_outs[i]) == 12 and all(
+        np.array_equal(mixed_outs[i][j], outs[i][b]) for b, j in enumerate(order))
+        for i in range(FLEET - late))
+    print(f"[7] step_pipelined, step, step_many(9), step_pipelined, flush_pipeline against "
+          f"step(): {FLEET - late} streams {'equal' if same else 'DIFFER'} over 12 blocks "
+          f"in the order taken", flush=True)
+    check(same, "the mixed call forms deliver other blocks than step()")
 
     # step_many over the spans between the events: chunks of CHUNK_BLOCKS
     # blocks, filled and delivered while the card runs the next. The EQ

@@ -1,5 +1,5 @@
 """The serving engine's loop and control surface on the CPU: the pipelined
-step, ``run_blocks``, the free-run loop, ``engine_diagnostics``,
+step (and its block in flight across a re-attach), ``run_blocks``, the free-run loop, ``engine_diagnostics``,
 ``set_stream_eq``, and the static-buffer step against chained pure
 ``_serving_step`` calls.
 
@@ -84,6 +84,28 @@ def test_pipelined_step_delivers_step_audio_one_call_later():
         assert len(p) == 4
         np.testing.assert_array_equal(np.concatenate(p), np.concatenate(s))
     assert pipe.stream_diagnostics(0)["blocks_processed"] == 4
+
+
+def test_a_block_in_flight_never_reaches_the_slots_next_stream():
+    """Stream A's block is in flight when A detaches and stream B attaches
+    into the same slot: the next ``step_pipelined()`` and
+    ``flush_pipeline()`` give B its own block only, which a fresh engine's
+    ``step()`` gives too, and B's ``blocks_processed`` counts that one."""
+    eng, ref = _engine(**LEAN), _engine(**LEAN)
+    got_a, got_b = [], []
+    slot = eng.attach(sink=got_a.append)
+    eng.push(slot, _noise(1, 5))
+    assert eng.step_pipelined() is None
+    eng.detach(slot)
+    assert eng.attach(sink=got_b.append) == slot
+    eng.push(slot, _noise(1, 6))
+    eng.step_pipelined()
+    eng.flush_pipeline()
+    (want,) = _collecting(ref, [_noise(1, 6)])
+    ref.step()
+    assert got_a == [] and len(got_b) == 1
+    np.testing.assert_array_equal(got_b[0], want[0])
+    assert eng.stream_diagnostics(slot)["blocks_processed"] == 1
 
 
 def test_stop_flushes_the_pipeline():

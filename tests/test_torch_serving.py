@@ -158,14 +158,17 @@ CHUNK = tsv.CHUNK_BLOCKS
 
 
 @pytest.mark.parametrize("n_blocks,shards", [(1, 1), (CHUNK, 1), (2 * CHUNK + 3, 1),
-                                             (2 * CHUNK + 3, 2)])
+                                             (2 * CHUNK + 3, 2), (1, 2)])
 def test_chunked_step_many_matches_repeated_step(n_blocks, shards):
     """``step_many(n)``, a pipeline over chunks of CHUNK blocks, against n x
     ``step()``, bit for bit, with what lands at the call's start: a slot
     reset, an EQ program staged and a control write on slot 0, slot 3
     detached; slot 1 runs out of audio inside the span. Every block of the
     call is a view of one ``[n, N, BLOCK]`` array, and audio a sink pushes
-    during the call stays queued for the next one."""
+    during the call stays queued for the next one. The same calls as
+    ``step_pipelined()`` and ``flush_pipeline()`` deliver the same blocks,
+    but for the first call's block of the two streams that detach while it
+    is in flight: it reaches neither them nor slot 2's next stream."""
     from audioforge_tpu_torch.ops import eq
 
     boost = [eq.EqBandConfig(b.filter_type, b.frequency_hz, 6.0 if i == 6 else 0.0, 1.0)
@@ -174,7 +177,7 @@ def test_chunked_step_many_matches_repeated_step(n_blocks, shards):
     audio = (0.2 * rng.standard_normal((4, (n_blocks + 1) * T))).astype(np.float32)
     short = T + n_blocks * T // 2 + 100   # slot 1: a partial block inside the span
     runs = {}
-    for mode in ("step", "step_many"):
+    for mode in ("step", "step_many", "step_pipelined"):
         kw = ({"sharding": fleet_mesh(devices=["cpu"] * 2)} if shards == 2
               else {"device": "cpu"})
         eng = tsv.ServingEngine(tsv.ServingConfig(
@@ -194,7 +197,8 @@ def test_chunked_step_many_matches_repeated_step(n_blocks, shards):
         for i in range(4):
             assert eng.attach(sink=sink(i)) == i
             eng.push(i, audio[i, :short] if i == 1 else audio[i])
-        eng.step()
+        first = eng.step_pipelined if mode == "step_pipelined" else eng.step
+        first()
         eng.detach(2)
         assert eng.attach(sink=sink(2)) == 2
         eng.push(2, audio[2])
@@ -204,6 +208,10 @@ def test_chunked_step_many_matches_repeated_step(n_blocks, shards):
         bases.clear()
         if mode == "step":
             metrics = [eng.step() for _ in range(n_blocks)][-1]
+        elif mode == "step_pipelined":
+            for _ in range(n_blocks):
+                eng.step_pipelined()
+            metrics = eng.flush_pipeline()
         else:
             pushing.append(True)
             metrics = eng.step_many(n_blocks)
@@ -214,6 +222,7 @@ def test_chunked_step_many_matches_repeated_step(n_blocks, shards):
         diag = [eng.stream_diagnostics(i) for i in range(3)]
         runs[mode] = (got, metrics, diag, eng.steps)
     (got_s, m_s, d_s, steps_s), (got_m, m_m, d_m, steps_m) = runs["step"], runs["step_many"]
+    got_p, m_p, d_p, steps_p = runs["step_pipelined"]
     for i in range(4):
         assert len(got_m[i]) == len(got_s[i]) == 1 + n_blocks * (i != 3)
         np.testing.assert_array_equal(np.stack(got_m[i]), np.stack(got_s[i]))
@@ -223,6 +232,15 @@ def test_chunked_step_many_matches_repeated_step(n_blocks, shards):
             b["blocks_processed"], b["underrun_count"])
     assert d_m[1]["underrun_count"] == -(-(n_blocks * T - (short - T)) // T)
     assert steps_m == steps_s == n_blocks + 1
+    for i in range(4):
+        lost = int(i >= 2)  # the first call's block of the streams that left
+        assert len(got_p[i]) == len(got_s[i]) - lost
+        for p, s in zip(got_p[i], got_s[i][lost:]):
+            np.testing.assert_array_equal(p, s)
+    assert set(m_p) == set(m_s) and all(torch.equal(m_p[k], m_s[k]) for k in m_s)
+    assert [(d["blocks_processed"], d["underrun_count"]) for d in d_p] == [
+        (d["blocks_processed"], d["underrun_count"]) for d in d_s]
+    assert steps_p == steps_s
 
 
 def _dry_engine(capacity=2):

@@ -216,9 +216,12 @@ def test_a_chunk_is_hidden_when_a_shard_still_runs_it(events, hidden):
     eng.attach(sink=got.append)
     targets = [(0, eng._slots[0], eng._slots[0].generation)]
     yh = torch.arange(2 * BLOCK, dtype=torch.float32).reshape(1, 2, 1, BLOCK)
+    buf = torch.zeros((2, 1, tsv.CHUNK_BLOCKS * BLOCK))
+    buf[1, 0, :2 * BLOCK] = yh.reshape(-1)
     out = np.zeros((3, 1, BLOCK), np.float32)
     before = _chunk_counts()[1]
-    eng._land_chunk(out, (yh, [_Event(e) for e in events], 1, 3), targets, False)
+    eng._land_chunk(out, (buf, [_Event(e) for e in events], 1, 3, None), targets, False,
+                    overlapped=True)
     assert _chunk_counts()[1] - before == hidden
     np.testing.assert_array_equal(out[1:, 0], yh[0, :, 0].numpy())
     assert [b.base is out for b in got] == [True, True]
