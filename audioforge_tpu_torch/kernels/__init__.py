@@ -60,9 +60,10 @@ NVCC_FLAGS = (
 # the plain twins' elementwise ops round them. These kernels compare smoothed
 # levels with thresholds, and a contracted FMA would move a level by an ulp
 # and flip a decision (the limiter form of max_affine_scan compares its target
-# with the gain of the sample before).
+# with the gain of the sample before; the RNNoise pitch tracker picks periods
+# by comparing gains and scores).
 NO_FMA_SOURCES = ("cleanup_scan.cu", "deesser_scan.cu", "gate_scan.cu",
-                  "max_affine_scan.cu", "silero_lstm.cu")
+                  "max_affine_scan.cu", "rnnoise_frame.cu", "silero_lstm.cu")
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # kernel name -> (C entry point, argtypes); every entry returns cudaError_t
@@ -90,6 +91,8 @@ KERNELS = {
     "vad_lstm_head": ("afk_vad_lstm_head", (_P,) * 14 + (_I, _I, _P)),
     "dfn_features": ("afk_dfn_features", (_P,) * 8 + (_I, _F, _F, _P)),
     "dfn_spec_synth": ("afk_dfn_spec_synth", (_P,) * 8 + (_I, _P)),
+    "rnnoise_pitch": ("afk_rnnoise_pitch", (_P,) * 12 + (_I, _P)),
+    "rnnoise_features": ("afk_rnnoise_features", (_P,) * 15 + (_I, _P)),
 }
 
 # launches per kernel since the last reset, counted where the kernel launches

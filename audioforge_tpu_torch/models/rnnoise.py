@@ -40,7 +40,8 @@ __all__ = [
     "PCM_SCALE", "PCM_MODEL_LIMIT", "LATENCY_SAMPLES", "init_params", "load_weights",
     "archive_provenance",
     "discover_model_path", "default_params", "weights_source", "rnnoise_state_init",
-    "frame_features", "rnnoise_frame", "rnnoise_frames", "soft_clip",
+    "frame_features", "rnnoise_pitch", "rnnoise_pitch_plain", "rnnoise_features",
+    "rnnoise_features_plain", "rnnoise_frame", "rnnoise_frames", "soft_clip",
     "frame_replay", "processor_init", "processor_push", "processor_prepare",
     "processor_process",
     "processor_pop",
@@ -118,6 +119,16 @@ def _interp_matrix() -> np.ndarray:
     return m
 
 
+def _band_weights() -> np.ndarray:
+    """``(2, 400)``: a bin's weight in :func:`_band_matrix` for the band at
+    the start of its segment (row 0) and at its end (row 1), as the
+    ``rnnoise_features`` kernel reads them."""
+    m = _band_matrix()
+    seg = np.searchsorted(_BAND_EDGES, np.arange(_BAND_EDGES[-1]), side="right") - 1
+    bins = np.arange(_BAND_EDGES[-1])
+    return np.stack([m[seg, bins], m[seg + 1, bins]])
+
+
 def _dct_matrix() -> np.ndarray:
     j = np.arange(NB_BANDS)
     k = np.arange(NB_BANDS)[:, None]
@@ -142,6 +153,8 @@ def _consts(device: torch.device) -> dict:
                                         device=device),
         "pc_offset": f32([1.3, 0.9, 0, 0, 0, 0]),
         "ceps_offset": f32([12.0, 4.0] + [0.0] * (NB_BANDS - 2)),
+        "band_w": f32(_band_weights()),
+        "band_edges": torch.as_tensor(_BAND_EDGES, dtype=torch.int32, device=device),
     }
 
 
@@ -485,24 +498,33 @@ def _spectral_floor(logE):
     return torch.stack(out, dim=-1)
 
 
-def frame_features(state, x_frame):
-    """``compute_frame_features``: returns ``(features, X, P, Ex, Ep, Exp,
-    silence, updates)``."""
+def rnnoise_pitch_plain(pitch_buf, x_frame, last_period, last_gain):
+    """The pitch tracker of ``compute_frame_features``: the new pitch buffer
+    (``pitch_buf [N, 1728]`` shifted by the frame ``x_frame [N, 480]``),
+    ``_pitch_downsample``, ``_pitch_search`` and ``_remove_doubling`` from
+    the previous period and gain. Returns ``(pitch_buf, pitch_index [N]
+    int32, gain [N], p_frame [N, 960])``: ``p_frame`` is the pitch-delayed
+    window of the buffer, windowed, whose FFT is P."""
     c = _consts(x_frame.device)
-    X = _fwd(torch.cat([state["analysis_mem"], x_frame], dim=-1) * c["window"])
-    Ex = _band_energy(X, c)
-
-    pitch_buf = torch.cat([state["pitch_buf"][:, FRAME_SIZE:], x_frame], dim=-1)
+    pitch_buf = torch.cat([pitch_buf[:, FRAME_SIZE:], x_frame], dim=-1)
     x24 = _pitch_downsample(pitch_buf, c)
     x_lp = x24[:, PITCH_MAX_PERIOD // 2:]
     raw_idx, corr_row = _pitch_search(x_lp, x24)
     pitch_index, gain = _remove_doubling(
-        x24, PITCH_MAX_PERIOD - raw_idx, state["last_period"], state["last_gain"],
-        corr_row)
-
+        x24, PITCH_MAX_PERIOD - raw_idx, last_period, last_gain, corr_row)
     start = PITCH_BUF_SIZE - WINDOW_SIZE - pitch_index
     rows = start[:, None] + torch.arange(WINDOW_SIZE, device=x_frame.device)
-    P = _fwd(_take(pitch_buf, rows) * c["window"])
+    return pitch_buf, pitch_index, gain, _take(pitch_buf, rows) * c["window"]
+
+
+def rnnoise_features_plain(X, P, cepstral_mem, pitch_index):
+    """The feature tail of ``compute_frame_features`` from the spectra ``X``
+    and ``P`` (complex ``[N, 481]``), the cepstral memory ``[N, 8, 22]`` and
+    the pitch period. Returns ``(features [N, 42], cepstral_mem, Ex, Ep,
+    Exp, silence)``; the memory is shifted whether or not the frame is
+    silent."""
+    c = _consts(X.device)
+    Ex = _band_energy(X, c)
     Ep = _band_energy(P, c)
     Exp = ((X.real * P.real + X.imag * P.imag) @ c["bands_t"]) / torch.sqrt(
         0.001 + Ex * Ep)
@@ -513,7 +535,7 @@ def frame_features(state, x_frame):
     ceps = _spectral_floor(torch.log10(1e-2 + Ex)) @ c["dct_t"]
     ceps = ceps - c["ceps_offset"]
 
-    mem = state["cepstral_mem"]
+    mem = cepstral_mem
     c0, c1, c2 = ceps, mem[:, 0], mem[:, 1]
     bfcc = torch.cat([(c0 + c1 + c2)[:, :NB_DELTA_CEPS], c0[:, NB_DELTA_CEPS:]],
                      dim=-1)
@@ -532,6 +554,85 @@ def frame_features(state, x_frame):
         (0.01 * (pitch_index - 300))[:, None],
         variability[:, None],
     ], dim=-1).to(torch.float32)
+    return features, new_mem, Ex, Ep, Exp, silence
+
+
+def rnnoise_pitch(pitch_buf, x_frame, last_period, last_gain):
+    """:func:`rnnoise_pitch_plain` on CPU tensors; the ``rnnoise_pitch``
+    CUDA kernel on CUDA tensors (f32 and int32, contiguous)."""
+    if x_frame.device.type == "cpu":
+        return rnnoise_pitch_plain(pitch_buf, x_frame, last_period, last_gain)
+    if x_frame.device.type != "cuda":
+        raise ValueError(f"rnnoise_pitch: unsupported device {x_frame.device}")
+    n, dev = x_frame.shape[0], x_frame.device
+    x_frame = x_frame.contiguous()
+    for name, t, dtype, shape in (
+            ("pitch_buf", pitch_buf, torch.float32, (n, PITCH_BUF_SIZE)),
+            ("x_frame", x_frame, torch.float32, (n, FRAME_SIZE)),
+            ("last_period", last_period, torch.int32, (n,)),
+            ("last_gain", last_gain, torch.float32, (n,))):
+        kernels.check_tensor(f"rnnoise_pitch {name}", t, dtype, shape, dev)
+    kernels.check_aligned("rnnoise_pitch pitch_buf", pitch_buf, 16)
+    kernels.check_aligned("rnnoise_pitch x_frame", x_frame, 16)
+    c = _consts(dev)
+    buf = torch.empty_like(pitch_buf)
+    pitch_index = torch.empty(n, dtype=torch.int32, device=dev)
+    gain = torch.empty(n, dtype=torch.float32, device=dev)
+    p_frame = torch.empty((n, WINDOW_SIZE), dtype=torch.float32, device=dev)
+    kernels.launch("rnnoise_pitch", pitch_buf.data_ptr(), x_frame.data_ptr(),
+                   last_period.data_ptr(), last_gain.data_ptr(), c["lagw"].data_ptr(),
+                   c["decay"].data_ptr(), c["second_check"].data_ptr(), c["window"].data_ptr(),
+                   buf.data_ptr(),
+                   pitch_index.data_ptr(), gain.data_ptr(), p_frame.data_ptr(), n,
+                   kernels.stream_of(dev))
+    return buf, pitch_index, gain, p_frame
+
+
+def rnnoise_features(X, P, cepstral_mem, pitch_index):
+    """:func:`rnnoise_features_plain` on CPU tensors; the
+    ``rnnoise_features`` CUDA kernel on CUDA tensors (complex64 spectra,
+    contiguous)."""
+    if X.device.type == "cpu":
+        return rnnoise_features_plain(X, P, cepstral_mem, pitch_index)
+    if X.device.type != "cuda":
+        raise ValueError(f"rnnoise_features: unsupported device {X.device}")
+    n, dev = X.shape[0], X.device
+    spectra = []
+    for name, t in (("X", X), ("P", P)):
+        kernels.check_tensor(f"rnnoise_features {name}", t, torch.complex64, (n, FREQ_SIZE),
+                             dev)
+        spectra.append(torch.view_as_real(t))
+    kernels.check_tensor("rnnoise_features cepstral_mem", cepstral_mem, torch.float32,
+                         (n, CEPS_MEM, NB_BANDS), dev)
+    kernels.check_tensor("rnnoise_features pitch_index", pitch_index, torch.int32, (n,), dev)
+    c = _consts(dev)
+    features = torch.empty((n, NB_FEATURES), dtype=torch.float32, device=dev)
+    new_mem = torch.empty_like(cepstral_mem)
+    Ex, Ep, Exp = (torch.empty((n, NB_BANDS), dtype=torch.float32, device=dev)
+                   for _ in range(3))
+    silence = torch.empty(n, dtype=torch.bool, device=dev)
+    kernels.launch("rnnoise_features", spectra[0].data_ptr(), spectra[1].data_ptr(),
+                   cepstral_mem.data_ptr(), pitch_index.data_ptr(), c["band_w"].data_ptr(),
+                   c["band_edges"].data_ptr(), c["dct_t"].data_ptr(),
+                   c["ceps_offset"].data_ptr(), c["pc_offset"].data_ptr(),
+                   features.data_ptr(), new_mem.data_ptr(),
+                   Ex.data_ptr(), Ep.data_ptr(), Exp.data_ptr(), silence.data_ptr(), n,
+                   kernels.stream_of(dev))
+    return features, new_mem, Ex, Ep, Exp, silence
+
+
+def frame_features(state, x_frame):
+    """``compute_frame_features``: returns ``(features, X, P, Ex, Ep, Exp,
+    silence, updates)``. On the card the pitch tracker and the feature tail
+    are one kernel each (:func:`rnnoise_pitch`, :func:`rnnoise_features`)
+    around the two FFTs."""
+    c = _consts(x_frame.device)
+    X = _fwd(torch.cat([state["analysis_mem"], x_frame], dim=-1) * c["window"])
+    pitch_buf, pitch_index, gain, p_frame = rnnoise_pitch(
+        state["pitch_buf"], x_frame, state["last_period"], state["last_gain"])
+    P = _fwd(p_frame)
+    features, new_mem, Ex, Ep, Exp, silence = rnnoise_features(
+        X, P, state["cepstral_mem"], pitch_index)
     updates = {"pitch_buf": pitch_buf, "last_period": pitch_index,
                "last_gain": gain, "cepstral_mem": new_mem}
     return features, X, P, Ex, Ep, Exp, silence, updates

@@ -26,7 +26,12 @@ a non-zero exit when it fails, and each followed by its wall-clock time:
    of the model stages (vad_front, vad_lstm_head, dfn_features,
    dfn_spec_synth, the last also with the post filter on; vad_front,
    vad_lstm_head and dfn_features also at 1023 streams and at one), with the time of
-   ``torch._VF.lstm_cell`` beside vad_lstm_head; then, as information, the time per call of both limiter stages and of the three
+   ``torch._VF.lstm_cell`` beside vad_lstm_head; the RNNoise frame's two
+   kernels (rnnoise_pitch, rnnoise_features) over 60 voiced frames at fleet
+   1024 and at one stream, and the frame as a graph at both sizes in its old
+   form (the plain twins, cuDNN's correlations) and its new: replay time,
+   nodes, kernels, cuDNN's kernels, hand-kernel launches (one of each), and
+   the per-op table of each form run eagerly; then, as information, the time per call of both limiter stages and of the three
    block-level torch stages that have no kernel yet (limiter window max,
    true-peak polyphase FIR, hum oscillator bank), the first two with their
    bound and the time of the one PyTorch call that computes each, and the
@@ -138,6 +143,7 @@ kernels of two checkouts on phase [2]'s inputs (:func:`timed_calls`).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -148,11 +154,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from bench_torch.counts import PEAKS, bound
+from bench_torch.counts import PEAKS, bound, rnnoise_macs
 from bench_torch.traffic.generator import _voice_on, mic_capture
 
 BLOCK = 480
 FLEET = 1024
+# the RNNoise frame's kernels, launched once a frame on every RNNoise path
+RNNOISE_LAUNCHES = {"rnnoise_pitch": 1, "rnnoise_features": 1}
 FS = 48000.0
 DEVICE = "cuda"
 FULL_BLOCKS = 60            # hum windows (250 ms) complete at blocks 25 and 50
@@ -172,7 +180,7 @@ NO_SPILL_KERNELS = ("env_scan_kernel", "biquad_cascade_kernel", "deesser_scan_ke
                     "compressor_scan_kernel", "gate_scan_kernel", "cleanup_scan_kernel",
                     "max_affine_scan_kernel", "limiter_gain_scan_kernel",
                     "vad_front_kernel", "vad_lstm_head_kernel", "dfn_features_kernel",
-                    "dfn_spec_synth_kernel")
+                    "dfn_spec_synth_kernel", "rnnoise_pitch_kernel", "rnnoise_features_kernel")
 CHUNKED_BLOCK = 2 * BLOCK   # every tiled kernel but biquad_cascade runs it as two chunks
 TIMED_CALLS = 600           # step() and step_pipelined() calls timed per path: six beyond the p99
 TIMED_SPAN = 50             # blocks of audio queued at a time while timing; step_many's span
@@ -1084,12 +1092,11 @@ def phase2_stage_bounds(card: str, xb, st, omegas, boundary) -> None:
     meters, four calls a block): each call reads its block once and the
     sanitizers write it once; three operations a sample each. The RNNoise
     frame: its weights, its state in and out, the frame in and out, and the
-    multiply-adds of its GEMMs and convolutions as
-    ``torch.utils.flop_counter`` counts them (the elementwise work
-    left out, so the bound stays a least time). No single PyTorch call
-    computes any of the three."""
-    from torch.utils.flop_counter import FlopCounterMode
-
+    operations ``bench_torch/counts`` states for it (``rnnoise_macs``: the
+    layers, the band and DCT products, the pitch search's correlations, both
+    FFTs), which the benchmark's roofline reads too; the correlations run
+    inside ``rnnoise_pitch``, where a FLOP counter does not see them. No
+    single PyTorch call computes any of the three."""
     from audioforge_tpu_torch.models import rnnoise
     from audioforge_tpu_torch.ops import routing
 
@@ -1108,9 +1115,9 @@ def phase2_stage_bounds(card: str, xb, st, omegas, boundary) -> None:
         z, _, _ = routing.sanitize_and_clamp_output(y, ceiling)
         routing.meter_block_stats(z, acc, coeff)
 
-    with FlopCounterMode(display=False) as counter:
-        new_state, y, aux = rnnoise.rnnoise_frame(weights, state, pcm)
-    rnnoise_flops = counter.get_total_flops()
+    new_state, y, aux = rnnoise.rnnoise_frame(weights, state, pcm)
+    m = rnnoise_macs({k: tuple(v.shape) for k, v in weights.items()})
+    rnnoise_flops = n * (2 * (m["layers"] + m["dsp"] + m["pitch"]) + 2 * 2.5 * 960 * np.log2(960))
     sample_bytes = 4 * n * T
     stages = (
         ("hum oscillator bank", "1 per full-chain block, 0 on the default and preset paths",
@@ -1282,6 +1289,146 @@ def phase2_models(res: Results) -> None:
                    f32_ops=n * (8 * 481 + 40 * 96 + 30 * 32))
 
 
+RNNOISE_FRAMES = 60       # voiced frames of phase [2]'s RNNoise kernel check
+RNNOISE_APART = 1e-3      # share of stream-frames whose period may differ: near ties
+RNNOISE_GRAPH_NODES = 250  # most nodes of the frame's graph in its new form
+
+
+@contextlib.contextmanager
+def plain_rnnoise():
+    """The RNNoise frame as the parent ran it: both kernels' plain twins in
+    their place (on the card they run eagerly, the correlations on cuDNN)."""
+    from audioforge_tpu_torch.models import rnnoise
+
+    kept = rnnoise.rnnoise_pitch, rnnoise.rnnoise_features
+    rnnoise.rnnoise_pitch = rnnoise.rnnoise_pitch_plain
+    rnnoise.rnnoise_features = rnnoise.rnnoise_features_plain
+    try:
+        yield
+    finally:
+        rnnoise.rnnoise_pitch, rnnoise.rnnoise_features = kept
+
+
+def phase2_rnnoise(res: Results) -> None:
+    """rnnoise_pitch and rnnoise_features against their plain twins on the
+    card over RNNOISE_FRAMES frames of :func:`voice_and_noise` at fleet 1024
+    and at one stream, each frame's inputs from the twins' frame before (the
+    trained archive): the new pitch buffer equal; the period equal on all but
+    RNNOISE_APART of the stream-frames, rounded up (near ties of the twin's,
+    whose correlations cuDNN sums in another order), on the card and against
+    the twin run on CPU copies of the inputs; where it agrees, the windowed
+    pitch-delayed frame equal to the card twin's, and the gain within 1e-4
+    of the CPU twin's (it divides correlations whose sums cancel; the CPU
+    twin sums its running energies in f64, as the kernel does, where the
+    twin on the card sums them in f32 with CUDA's ``cumsum``, so the card
+    twin's gain error is printed beside it as information); the features, from the twin's P and
+    period, within 1e-4 (cepstra of tens carry ulps of 4e-6, the twin's band
+    sums and DCTs are f32 matmuls), the band energies 1e-5 relative and the
+    silence flag equal. Then each kernel's time at the last frame's inputs,
+    and the frame as a graph in both forms (:func:`rnnoise_frame_rows`)."""
+    from audioforge_tpu_torch.models import rnnoise
+    from audioforge_tpu_torch.ops import biquad
+
+    params = rnnoise.load_weights(rnnoise.discover_model_path(), DEVICE)
+    c = rnnoise._consts(torch.device(DEVICE))
+    for n in (FLEET, 1):
+        audio = torch.tensor(voice_and_noise(n, RNNOISE_FRAMES, 71) * rnnoise.PCM_SCALE,
+                             device=DEVICE)
+        st = rnnoise.rnnoise_state_init(n=n, device=DEVICE)
+        apart = apart_cpu = silent = 0
+        gain_err = gain_err_card = feat_err = band_rel = 0.0
+        for f in range(RNNOISE_FRAMES):
+            xf = audio[:, f * BLOCK:(f + 1) * BLOCK].contiguous()
+            x_hp, _ = biquad.apply_fixed(rnnoise._HP_COEFFS, st["hp_mem"][:, None, :], xf)
+            pitch_args = (st["pitch_buf"], x_hp, st["last_period"], st["last_gain"])
+            got, want = rnnoise.rnnoise_pitch(*pitch_args), rnnoise.rnnoise_pitch_plain(*pitch_args)
+            check(torch.equal(got[0], want[0]), "rnnoise_pitch: the pitch buffer differs")
+            want_cpu = rnnoise.rnnoise_pitch_plain(*(a.cpu() for a in pitch_args))
+            same = got[1] == want[1]
+            apart += int((~same).sum())
+            if bool(same.any()):
+                gain_err_card = max(gain_err_card, (got[2] - want[2])[same].abs().max().item())
+                check(torch.equal(got[3][same], want[3][same]),
+                      "rnnoise_pitch: the pitch-delayed frame differs where the period agrees")
+            same_cpu = got[1].cpu() == want_cpu[1]
+            apart_cpu += int((~same_cpu).sum())
+            if bool(same_cpu.any()):
+                gain_err = max(gain_err,
+                               (got[2].cpu() - want_cpu[2])[same_cpu].abs().max().item())
+            X = rnnoise._fwd(torch.cat([st["analysis_mem"], x_hp], -1) * c["window"])
+            feat_args = (X, rnnoise._fwd(want[3]), st["cepstral_mem"], want[1])
+            fk = rnnoise.rnnoise_features(*feat_args)
+            fp = rnnoise.rnnoise_features_plain(*feat_args)
+            feat_err = max(feat_err, _tuple_err(fk[:2], fp[:2]), _tuple_err(fk[4:5], fp[4:5]))
+            band_rel = max(band_rel, *(((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+                                       for a, b in zip(fk[2:4], fp[2:4])))
+            check(torch.equal(fk[5], fp[5]), "rnnoise_features: the silence flag differs")
+            silent += int(fp[5].sum())
+            with plain_rnnoise():
+                st, _, _ = rnnoise.rnnoise_frame(params, st, xf)
+        allowed = int(np.ceil(RNNOISE_APART * n * RNNOISE_FRAMES))
+        print(f"[2] RNNoise kernels [{n}] over {RNNOISE_FRAMES} frames: period apart from the "
+              f"twin on {apart} stream-frames on the card, {apart_cpu} on the CPU (at most "
+              f"{allowed}); gain max error {gain_err:.3e} against the CPU twin (tol 1e-4), "
+              f"{gain_err_card:.3e} against the card twin (info); band energies "
+              f"{band_rel:.3e} relative (tol 1e-5); silent stream-frames {silent}", flush=True)
+        check(max(apart, apart_cpu) <= allowed, "rnnoise_pitch: periods differ beyond near ties")
+        check(band_rel <= 1e-5, "rnnoise_features: band energies differ from the twin")
+        # bytes: the pitch buffer in and out, the frame, the period and gain
+        # in and out, the windowed frame out; the correlations' multiply-adds
+        # and ~20 operations a sample of the decimation, FIR and sums
+        res.report("rnnoise_pitch", gain_err, 1e-4,
+                   kernel_times(lambda: rnnoise.rnnoise_pitch(*pitch_args)),
+                   cuda_ms(lambda: rnnoise.rnnoise_pitch_plain(*pitch_args), 20),
+                   f"[{n}, 1728] + [{n}, 480] -> [{n}, 960]",
+                   4 * n * (2 * 1728 + 480 + 4 + 960),
+                   f32_ops=n * (2 * (193 * 240 + 385 * 480) + 20 * 1728))
+        # bytes: both spectra and the memory read, features, memory, three
+        # band rows and the flag written; per bin 8 operations, the band
+        # sums' 3 x 2 x 400, 22 log10 (~20 each), two DCTs, the 28 distances
+        res.report("rnnoise_features", feat_err, 1e-4,
+                   kernel_times(lambda: rnnoise.rnnoise_features(*feat_args)),
+                   cuda_ms(lambda: rnnoise.rnnoise_features_plain(*feat_args), 20),
+                   f"[{n}, 481] x 2 -> [{n}, 42]",
+                   4 * n * (2 * 962 + 2 * 176 + 42 + 3 * 22) + n,
+                   f32_ops=n * (8 * 481 + 6 * 400 + 22 * 20 + 2 * 2 * 22 * 22 + 28 * 66))
+    for n in (FLEET, 1):
+        rnnoise_frame_rows(res.card, "[2]", n)
+
+
+def rnnoise_frame_rows(card: str, tag: str, n: int) -> None:
+    """One RNNoise frame (``rnnoise.rnnoise_frame``, the trained archive) of
+    ``n`` streams after three frames of :func:`voice_and_noise`, in its old
+    form (:func:`plain_rnnoise`) and its new, as :func:`frame_graph_rows`
+    reads them. Checks that the new form's graph launches rnnoise_pitch and
+    rnnoise_features once each, no cuDNN kernel, and has at most
+    RNNOISE_GRAPH_NODES nodes."""
+    from audioforge_tpu_torch.models import rnnoise
+
+    cpu = rnnoise.load_weights(rnnoise.discover_model_path(), "cpu")
+    params = {k: v.to(DEVICE) for k, v in cpu.items()}
+    x = torch.from_numpy(voice_and_noise(n, 4, 63 + n).reshape(n, 4, BLOCK)
+                         * rnnoise.PCM_SCALE)
+    st = rnnoise.rnnoise_state_init(n=n, device="cpu")
+    for f in range(3):
+        st, _, _ = rnnoise.rnnoise_frame(cpu, st, x[:, f])
+    _, y_cpu, aux_cpu = rnnoise.rnnoise_frame(cpu, st, x[:, 3])
+    x_dev = x[:, 3].contiguous().to(DEVICE)
+
+    def frame(state):
+        _, y, aux = rnnoise.rnnoise_frame(params, state, x_dev)
+        return y, aux["gains"]
+
+    new = frame_graph_rows(card, tag, f"one RNNoise frame at {n} stream(s)", frame, st,
+                           (y_cpu, aux_cpu["gains"]),
+                           {"old": plain_rnnoise, "new": contextlib.nullcontext})["new"]
+    check(all(new["launches"].get(k) == 1 for k in RNNOISE_LAUNCHES),
+          f"the RNNoise frame's graph launches {new['launches']}, not one of each kernel")
+    check(new["cudnn"] == 0, "the RNNoise frame's graph still runs cuDNN kernels")
+    check(new["nodes"]["nodes"] <= RNNOISE_GRAPH_NODES,
+          f"the RNNoise frame's graph has {new['nodes']['nodes']} nodes")
+
+
 def timed_calls():
     """``(label, call, reps, blocks)`` for every kernel configuration phase
     [2] times, on phase [2]'s inputs: ``call`` runs the wrapper on ``blocks``
@@ -1340,6 +1487,16 @@ def timed_calls():
     one = _rows(features, 1)  # the live engine's DeepFilterNet3 frame
     yield "dfn_features one stream", lambda: dfn3.dfn_features(*one), 20, 1
     yield "dfn_spec_synth", lambda: dfn3.dfn_spec_synth(*synth), 20, 1
+    # the RNNoise frame (every checkout has it) at fleet 1024 and one stream
+    from audioforge_tpu_torch.models import rnnoise
+
+    params = rnnoise.load_weights(rnnoise.discover_model_path(), DEVICE)
+    for n in (FLEET, 1):
+        st = rnnoise.rnnoise_state_init(n=n, device=DEVICE)
+        xf = torch.tensor(voice_and_noise(n, 1, 71) * rnnoise.PCM_SCALE, device=DEVICE)
+        st, _, _ = rnnoise.rnnoise_frame(params, st, xf)
+        yield (f"rnnoise_frame [{n}]",
+               lambda st=st, xf=xf: rnnoise.rnnoise_frame(params, st, xf), 20, 1)
 
 
 def _engine(capacity: int, device: str, audio: np.ndarray, chain=None, **config):
@@ -1513,8 +1670,8 @@ def phase3_default(card: str) -> dict:
     print(f"[3] default path, launches over {n_blocks} blocks: {counts}", flush=True)
     peak = _check_output(outs, n_blocks + 1, FLEET)
     _check_per_block(counts, {"biquad_cascade": 5, "limiter_gain_scan": 2,
-                              "compressor_scan": 1, "gate_scan": 1}, n_blocks,
-                     "default path")
+                              "compressor_scan": 1, "gate_scan": 1, **RNNOISE_LAUNCHES},
+                     n_blocks, "default path")
     print(f"[3] output finite, peak {peak:.4f} within the ceiling", flush=True)
     layer_split(eng, card, "[3]")
     time_paths(eng, outs, audio, card, "[3]")
@@ -1539,8 +1696,8 @@ def phase4_full_chain(card: str) -> dict:
     print_capture(eng, card, "[4]")
     _check_per_block(counts, {"biquad_cascade": 5, "limiter_gain_scan": 2,
                               "compressor_scan": 1, "gate_scan": 1,
-                              "deesser_scan": 1, "cleanup_scan": 1}, FULL_BLOCKS,
-                     "full chain")
+                              "deesser_scan": 1, "cleanup_scan": 1, **RNNOISE_LAUNCHES},
+                     FULL_BLOCKS, "full chain")
     peak = _check_output(outs, FULL_BLOCKS, FLEET)
     cls = np.arange(FLEET) % 4
     hum = m["routing_hum_detected"].cpu().numpy()
@@ -1576,7 +1733,7 @@ _CHAIN_LAUNCHES = {"biquad_cascade": 5, "limiter_gain_scan": 2, "compressor_scan
 MODEL_PATHS = {
     "VAD-on": (dict(vad_enabled=True), vad_chain,
                {**_CHAIN_LAUNCHES, "deesser_scan": 1, "cleanup_scan": 1, "vad_front": 1,
-                "vad_lstm_head": 1}),
+                "vad_lstm_head": 1, **RNNOISE_LAUNCHES}),
     # without RNNoise, its input high-pass is not launched
     "DFN3-LL": (dict(suppressor_model="deepfilter-ll"), None,
                 {**_CHAIN_LAUNCHES, "biquad_cascade": 4, "dfn_features": 1,
@@ -1660,25 +1817,16 @@ def phase_model_path(card: str, name: str, tag: str) -> dict:
 # kernel names of cuDNN's engines: its own namespace, its implicit-GEMM
 # convolutions and its generic convolution kernels
 CUDNN_MARKS = ("cudnn", "fprop", "convolve")
-DFN_FRAME_REPLAYS = 50   # replays timed (CUDA events) and profiled (kernel census)
-DFN_OP_ROWS = 25         # rows of the per-op table
+FRAME_REPLAYS = 50   # replays timed (CUDA events) and profiled (kernel census)
+FRAME_OP_ROWS = 25   # rows of each per-op table
 
 
 def dfn_frame_rows(card: str, tag: str, n: int) -> None:
     """Information: one DFN3-LL frame (``dfn3.dfn_frame`` with the trained
     archive) of ``n`` streams after three frames of :func:`voice_and_noise`,
-    captured as a graph: its replay on the card (CUDA events), its output's
-    and gains' error against the same frame on the CPU, the kernels of one
-    replay with those of cuDNN (:data:`CUDNN_MARKS`) counted apart, and the
-    per-op table of the same frame run eagerly (``torch.profiler`` with
-    ``record_shapes``: each aten op that launched kernels, its input shapes,
-    its kernels' ms)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    as :func:`frame_graph_rows` reads it."""
     from audioforge_tpu_torch import kernels
     from audioforge_tpu_torch.models import dfn3
-    from audioforge_tpu_torch.runtime import replay
 
     cpu = dfn3.default_params(True)
     params = {k: v.to(DEVICE) for k, v in cpu.items()}
@@ -1695,46 +1843,84 @@ def dfn_frame_rows(card: str, tag: str, n: int) -> None:
         _, y, aux = dfn3.dfn_frame(params, state, x_dev, *controls)
         return y, aux["erb_gains"]
 
-    state = {k: v.to(DEVICE) for k, v in st.items()}
-    graph, (y, gains), launches, _ = replay.capture_graph(DEVICE, frame, state)
-    graph.replay()
-    torch.cuda.synchronize()
-    y_err = (y.cpu().double() - y_cpu.double()).abs().max().item()
-    g_err = (gains.cpu().double() - aux_cpu["erb_gains"].double()).abs().max().item()
-    ms = cuda_ms(graph.replay, DFN_FRAME_REPLAYS)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(DFN_FRAME_REPLAYS):
-            graph.replay()
+    frame_graph_rows(card, tag, f"one DFN3-LL frame at {n} stream(s)", frame, st,
+                     (y_cpu, aux_cpu["erb_gains"]), {"": contextlib.nullcontext})
+
+
+def frame_graph_rows(card: str, tag: str, label: str, frame, state, want, forms) -> dict:
+    """Information on one model frame in each of its ``forms`` (name -> a
+    context manager factory under which the frame runs): ``frame(state)``
+    returns ``(output, gains)`` on the card, ``state`` is the frame's state
+    on the CPU and ``want`` the same frame's ``(output, gains)`` there. Each
+    form is captured as a graph, in turns (A, B, B, A), and read: each
+    replay's time (CUDA events over FRAME_REPLAYS), the graph's nodes, the
+    kernels of one replay (profiler census) with cuDNN's
+    (:data:`CUDNN_MARKS`) counted apart and the eight longest, the hand
+    kernels' launches, the output's and gains' error against ``want``; then
+    each form's per-op table run eagerly (``torch.profiler`` with
+    ``record_shapes``: each aten op that launched kernels, its input shapes,
+    its kernels' ms). Returns each form's readings."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audioforge_tpu_torch.runtime import replay
+
+    read = {}
+    order = list(forms) + list(reversed(forms)) if len(forms) > 1 else list(forms)
+    for form in order:
+        with forms[form]():
+            dev_state = {k: v.to(DEVICE) for k, v in state.items()}
+            graph, (y, gains), launches, _ = replay.capture_graph(DEVICE, frame, dev_state)
+        graph.replay()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    per_replay = sum(e.count for e in rows) / DFN_FRAME_REPLAYS
-    cudnn = [e for e in rows if any(m in e.key.lower() for m in CUDNN_MARKS)]
-    cudnn_n = sum(e.count for e in cudnn) / DFN_FRAME_REPLAYS
-    cudnn_ms = sum(e.self_device_time_total for e in cudnn) / DFN_FRAME_REPLAYS / 1e3
-    print(f"{tag} one DFN3-LL frame at {n} stream(s) as a graph (info, {card}): "
-          f"{ms:.4f} ms a replay (CUDA events); error against the CPU frame: output max "
-          f"{y_err:.3e}, ERB gains max {g_err:.3e}; {per_replay:.0f} kernels a replay, "
-          f"{cudnn_n:.0f} of them cuDNN's ({cudnn_ms:.4f} ms); hand kernels {launches}",
-          flush=True)
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / DFN_FRAME_REPLAYS / 1e3:8.4f} ms "
-              f"{e.count / DFN_FRAME_REPLAYS:4.0f}x  {e.key[:90]}")
-    frame(state)  # warm for the eager profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        frame(state)
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages(group_by_input_shape=True)
-           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in ops) / 1e3
-    print(f"{tag} the same frame run eagerly, by aten op and input shapes (info, {card}): "
-          f"{total:.4f} ms of kernels over {len(ops)} rows; the {DFN_OP_ROWS} longest:",
-          flush=True)
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:DFN_OP_ROWS]:
-        shapes = ", ".join(str(list(s)) for s in e.input_shapes if s)
-        print(f"    {e.self_device_time_total / 1e3:8.4f} ms {e.count:3d}x  {e.key[:32]:32s} "
-              f"{shapes[:110]}")
+        ms = cuda_ms(graph.replay, FRAME_REPLAYS)
+        if form in read:
+            read[form]["ms"].append(ms)
+            continue
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(FRAME_REPLAYS):
+                graph.replay()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        cudnn = [e for e in rows if any(m in e.key.lower() for m in CUDNN_MARKS)]
+        read[form] = dict(
+            ms=[ms], nodes=graph_nodes(graph), launches=launches,
+            kernels=sum(e.count for e in rows) / FRAME_REPLAYS,
+            cudnn=sum(e.count for e in cudnn) / FRAME_REPLAYS,
+            cudnn_ms=sum(e.self_device_time_total for e in cudnn) / FRAME_REPLAYS / 1e3,
+            y_err=(y.cpu().double() - want[0].double()).abs().max().item(),
+            g_err=(gains.cpu().double() - want[1].double()).abs().max().item(), rows=rows)
+    for form, r in read.items():
+        name = f"{label} as a graph" + (f", {form} form" if form else "")
+        print(f"{tag} {name} (info, {card}): {', '.join(f'{v:.4f}' for v in r['ms'])} ms a "
+              f"replay (CUDA events); graph {r['nodes']}; {r['kernels']:.0f} kernels a replay, "
+              f"{r['cudnn']:.0f} of them cuDNN's ({r['cudnn_ms']:.4f} ms); hand kernels "
+              f"{r['launches']}; error against the CPU frame: output max {r['y_err']:.3e}, "
+              f"gains max {r['g_err']:.3e}", flush=True)
+        for e in sorted(r["rows"], key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"    {e.self_device_time_total / FRAME_REPLAYS / 1e3:8.4f} ms "
+                  f"{e.count / FRAME_REPLAYS:4.0f}x  {e.key[:90]}")
+    for form in read:
+        with forms[form]():
+            dev_state = {k: v.to(DEVICE) for k, v in state.items()}
+            frame(dev_state)  # warm for the eager profile
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                frame(dev_state)
+                torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages(group_by_input_shape=True)
+               if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+        total = sum(e.self_device_time_total for e in ops) / 1e3
+        name = f"{label}" + (f", {form} form," if form else "")
+        print(f"{tag} {name} run eagerly, by aten op and input shapes (info, {card}): "
+              f"{total:.4f} ms of kernels over {len(ops)} rows, {sum(e.count for e in ops)} "
+              f"calls; the {FRAME_OP_ROWS} longest:", flush=True)
+        for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:FRAME_OP_ROWS]:
+            shapes = ", ".join(str(list(s)) for s in e.input_shapes if s)
+            print(f"    {e.self_device_time_total / 1e3:8.4f} ms {e.count:3d}x  "
+                  f"{e.key[:32]:32s} {shapes[:110]}")
+    return read
 
 
 def layer_split(eng, card: str, tag: str) -> None:
@@ -1920,6 +2106,10 @@ SOURCES = {
                      "audioforge_tpu/models/dfn3.py:621"),
     "dfn_spec_synth": ("audioforge_tpu_torch/csrc/dfn_synth.cu",
                        "audioforge_tpu/models/dfn3.py:770"),
+    "rnnoise_pitch": ("audioforge_tpu_torch/csrc/rnnoise_frame.cu",
+                      "audioforge_tpu/models/rnnoise.py:488"),
+    "rnnoise_features": ("audioforge_tpu_torch/csrc/rnnoise_frame.cu",
+                         "audioforge_tpu/models/rnnoise.py:732"),
 }
 
 def phase6_profile(card: str) -> None:
@@ -2682,7 +2872,7 @@ LIVE_BASE = {"biquad_cascade": 4, "limiter_gain_scan": 2, "compressor_scan": 1,
 # suppressor -> (noise model or None, expected launches per block at one stream)
 LIVE_SETTINGS = {
     "none": (None, LIVE_BASE),
-    "rnnoise": ("rnnoise", dict(LIVE_BASE, biquad_cascade=5)),
+    "rnnoise": ("rnnoise", dict(LIVE_BASE, biquad_cascade=5, **RNNOISE_LAUNCHES)),
     "DFN3-LL": ("deepfilter-ll", dict(LIVE_BASE, dfn_features=1, dfn_spec_synth=1)),
     "DFN3 standard": ("deepfilter", dict(LIVE_BASE, dfn_features=1, dfn_spec_synth=1)),
 }
@@ -3104,8 +3294,9 @@ FLEET_SHARDS = (1, 2, 4)      # shards of the fleet, all on the one card
 FLEET_TIMED_CALLS = 200       # step() calls timed on each engine
 FLEET_CPU_STREAMS = 8         # card against CPU
 FLEET_CPU_BLOCKS = 10
+# launches a block of one shard on the voice preset's path
 FLEET_PATH = {"biquad_cascade": 5, "limiter_gain_scan": 2, "compressor_scan": 1,
-              "gate_scan": 1}  # launches a block of one shard on the voice preset's path
+              "gate_scan": 1, **RNNOISE_LAUNCHES}
 PRESET_RUN_S = 3.0            # run --preset's duration
 
 
@@ -3335,7 +3526,8 @@ def main() -> int:
     res = Results(card)
     timed_phase("[2] kernels", lambda: (phase2_pr1_kernels(res), phase2_gate(res),
                                         phase2_deesser(res), phase2_cleanup(res),
-                                        phase2_models(res), phase2_offline(res),
+                                        phase2_models(res), phase2_rnnoise(res),
+                                        phase2_offline(res),
                                         phase2_torch_stages(card)))
     timed_phase("[3] default path", phase3_default, card)
     counts = timed_phase("[4] full chain", phase4_full_chain, card)

@@ -47,6 +47,10 @@ true-peak-limiter-shaped inputs, equal to their twins to the bit.
 ``env_scan`` runs on its kernel's chunk schedule over the kernel's ring of
 column-major strip tiles (the serial phase a column a lane, four samples a
 read, the log a chunk behind), at T = 480 and 1000 and B = 16, 17 and 1.
+``rnnoise_pitch`` and ``rnnoise_features`` run their phases in their
+blocks' order (the scans and reductions in f64 in index order, the top-two
+pairs pushed in lag order, the 14 probes in turn) over 60 frames of 11
+streams against ``rnnoise_pitch_plain`` and ``rnnoise_features_plain``.
 
 Needs ``g++``; without it the tests skip with a reason.
 """
@@ -62,6 +66,7 @@ import pytest
 import torch
 
 from audioforge_tpu_torch.models import dfn3 as tdfn
+from audioforge_tpu_torch.models import rnnoise as trn
 from audioforge_tpu_torch.models import silero as tsil
 from audioforge_tpu_torch.ops import biquad as tbq
 from audioforge_tpu_torch.ops import compressor as tcomp
@@ -90,6 +95,171 @@ RUNNER = r"""
 #include "dfn_features.cu"
 #include "dfn_synth.cu"
 #include "env_scan.cu"
+#include "rnnoise_frame.cu"
+
+// rnnoise_pitch per stream, in its block's phase order: the buffer, the
+// decimation, the autocorrelation's f64 sums, the taps (one thread), the
+// whitening; the 12 kHz rows, the frame's energy and the three running sums
+// of squares in f64; every lag's correlation; the coarse top two and the
+// fine best (pushed in lag order here, merged over warps there: the order
+// of (score, lag) pairs does not change the pair chosen); the 14 probes,
+// the last that passes; the windowed pitch-delayed frame.
+extern "C" int host_rnnoise_pitch(const float* pitch_buf, const float* x,
+                                  const int* last_period, const float* last_gain,
+                                  const float* lagw, const float* decay,
+                                  const int* second_check, const float* window,
+                                  float* buf_out, int* pitch_index, float* gain_out,
+                                  float* p_frame, int N) {
+    std::vector<float> buf(RNP_BUF), xlp(RNP_HALF), x24(RNP_HALF), x12(RNP_N12),
+        y12(RNP_Y12), csum12(RNP_Y12 + 1), csum24(RNP_HALF + 1), cs_yy(RNP_MAXP + 1),
+        xc12(RNP_LAGS12), ext(RNP_LAGS24);
+    for (int n = 0; n < N; ++n) {
+        // the new pitch buffer: the old one's last 1,248 samples, then the frame
+        std::copy(pitch_buf + n * RNP_BUF + RNP_FRAME, pitch_buf + (n + 1) * RNP_BUF,
+                  buf.begin());
+        std::copy(x + n * RNP_FRAME, x + (n + 1) * RNP_FRAME, buf.begin() + RNP_BUF - RNP_FRAME);
+        std::copy(buf.begin(), buf.end(), buf_out + n * RNP_BUF);
+        for (int i = 0; i < RNP_HALF; ++i) xlp[i] = rnp_decimate(buf.data(), i);
+        double ac[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
+        for (int i = 0; i < RNP_HALF; ++i) rnp_ac_add(xlp.data(), i, ac);
+        float acf[5], taps[5];
+        for (int k = 0; k < 5; ++k) acf[k] = static_cast<float>(ac[k]);
+        rnp_lpc_taps(acf, lagw, decay, taps);
+        for (int i = 0; i < RNP_HALF; ++i) x24[i] = rnp_whiten(xlp.data(), taps, i);
+        for (int i = 0; i < RNP_Y12; ++i) {
+            y12[i] = x24[2 * i];
+            if (i < RNP_N12) x12[i] = x24[RNP_MAXP + 2 * i];
+        }
+        double e = 0.0, s12 = 0.0, s24 = 0.0, syy = 0.0;
+        for (int i = RNP_MAXP; i < RNP_HALF; ++i) e += static_cast<double>(x24[i] * x24[i]);
+        const float xx = static_cast<float>(e);
+        csum12[0] = csum24[0] = cs_yy[0] = 0.0f;
+        for (int i = 0; i < RNP_HALF; ++i) {
+            if (i < RNP_Y12) {
+                s12 += static_cast<double>(x24[2 * i] * x24[2 * i]);
+                csum12[i + 1] = static_cast<float>(s12);
+            }
+            s24 += static_cast<double>(x24[i] * x24[i]);
+            csum24[i + 1] = static_cast<float>(s24);
+            if (i < RNP_MAXP) {
+                const float b = x24[RNP_MAXP - 1 - i], f = x24[RNP_HALF - 1 - i];
+                syy += static_cast<double>(b * b - f * f);
+                cs_yy[i + 1] = static_cast<float>(syy);
+            }
+        }
+        for (int l = 0; l < RNP_LAGS24; ++l)
+            ext[l] = rnp_xcorr(x24.data() + RNP_MAXP, x24.data() + l, RNP_N24);
+        for (int l = 0; l < RNP_LAGS12; ++l)
+            xc12[l] = rnp_xcorr(x12.data(), y12.data() + l, RNP_N12);
+        RnpTop2 top = rnp_top2_empty();
+        for (int i = 0; i < RNP_USE12; ++i)
+            rnp_top2_push(top, rnp_score(xc12[i], rnp_syy(csum12.data(), i, RNP_N12)), i);
+        int c0, c1;
+        rnp_coarse_pick(top, &c0, &c1);
+        top = rnp_top2_empty();
+        for (int i = 0; i < RNP_USE24; ++i)
+            rnp_top2_push(top, rnp_score(rnp_fine_value(ext.data(), i, c0, c1),
+                                         rnp_syy(csum24.data(), i, RNP_N24)), i);
+        const int T0 = rnp_t0(rnp_raw_index(ext.data(), top, c0, c1));
+        const int prev_period = rnp_floor_div(last_period[n], 2);
+        const float xy0 = ext[RNP_MAXP - T0], yy0 = rnp_yy(xx, cs_yy.data(), T0);
+        const float g0 = rnp_pitch_gain(xy0, xx, yy0);
+        RnpProbe best = {false, T0, xy0, yy0, g0};
+        for (int k = 2; k < 2 + RNP_PROBES; ++k) {
+            const RnpProbe p = rnp_probe(k, second_check[k - 2], T0, prev_period, last_gain[n],
+                                         g0, xx, ext.data(), cs_yy.data());
+            if (p.take) best = p;
+        }
+        int period;
+        float gain;
+        rnp_doubling_finish(best.xy, best.yy, best.T1, best.g1, ext.data(), &period, &gain);
+        pitch_index[n] = period;
+        gain_out[n] = gain;
+        const int start = RNP_BUF - RNP_WIN - period;
+        for (int j = 0; j < RNP_WIN; ++j) p_frame[n * RNP_WIN + j] = buf[start + j] * window[j];
+    }
+    return 0;
+}
+
+// _find_best_pitch as rnnoise_pitch computes it over one row: the running
+// sum of squares in f64, each lag's score pushed in lag order, the pick.
+extern "C" int host_rnnoise_best_pitch(const float* xcorr, const float* y, int n_lags,
+                                       int len, int* best) {
+    std::vector<float> csum(n_lags + len + 1);
+    double s = 0.0;
+    csum[0] = 0.0f;
+    for (int i = 0; i < n_lags + len; ++i) {
+        s += static_cast<double>(y[i] * y[i]);
+        csum[i + 1] = static_cast<float>(s);
+    }
+    RnpTop2 top = rnp_top2_empty();
+    for (int i = 0; i < n_lags; ++i)
+        rnp_top2_push(top, rnp_score(xcorr[i], rnp_syy(csum.data(), i, len)), i);
+    rnp_coarse_pick(top, best, best + 1);
+    return 0;
+}
+
+// rnnoise_features per stream, as its warp runs it: the per-bin powers and
+// cross products, a band's sums, Exp and log energy (a lane each), the
+// silence test on the f64 sum of the bands, the spectral floor on one lane,
+// the DCT rows, the memory's shift and the features, the 28 distances, the
+// rows' minima and the variability.
+extern "C" int host_rnnoise_features(const float* X, const float* P, const float* mem,
+                                     const int* pitch_index, const float* band_w,
+                                     const int* band_edge, const float* dct_t,
+                                     const float* ceps_offset, const float* pc_offset,
+                                     float* features, float* mem_out,
+                                     float* ex_out, float* ep_out, float* exp_out,
+                                     unsigned char* silence, int N) {
+    float q[3][RNF_FREQ], exp_v[RNF_BANDS], log_e[RNF_BANDS], rows[RNF_MEM * RNF_BANDS];
+    float dist[RNF_MEM * RNF_MEM], row_min[RNF_MEM];
+    for (int n = 0; n < N; ++n) {
+        const float* Xn = X + n * RNF_FREQ * 2;
+        const float* Pn = P + n * RNF_FREQ * 2;
+        for (int k = 0; k < RNF_FREQ; ++k) {
+            q[0][k] = rnf_power(Xn[2 * k], Xn[2 * k + 1]);
+            q[1][k] = rnf_power(Pn[2 * k], Pn[2 * k + 1]);
+            q[2][k] = rnf_cross(Xn[2 * k], Xn[2 * k + 1], Pn[2 * k], Pn[2 * k + 1]);
+        }
+        double energy = 0.0;
+        for (int b = 0; b < RNF_BANDS; ++b) {
+            const float ex = rnf_band(q[0], band_w, band_edge, b);
+            const float ep = rnf_band(q[1], band_w, band_edge, b);
+            exp_v[b] = rnf_exp(rnf_band(q[2], band_w, band_edge, b), ex, ep);
+            ex_out[n * RNF_BANDS + b] = ex;
+            ep_out[n * RNF_BANDS + b] = ep;
+            exp_out[n * RNF_BANDS + b] = exp_v[b];
+            log_e[b] = rnf_log_energy(ex);
+            energy += static_cast<double>(ex);
+        }
+        float log_max = -2.0f, follow = -2.0f;
+        for (int b = 0; b < RNF_BANDS; ++b) log_e[b] = rnf_floor_step(log_e[b], log_max, follow);
+        const float* old = mem + n * RNF_MEM * RNF_BANDS;
+        float* feat = features + n * RNF_FEATURES;
+        for (int k = 0; k < RNF_BANDS; ++k) {
+            const float c0 = rnf_dct(log_e, dct_t, k) - ceps_offset[k];
+            const float pc = k < RNF_DELTA ? rnf_dct(exp_v, dct_t, k) - pc_offset[k] : 0.0f;
+            rnf_feature_rows(k, c0, old[k], old[RNF_BANDS + k], pc, feat);
+            rows[k] = c0;
+            for (int i = 1; i < RNF_MEM; ++i) rows[i * RNF_BANDS + k] = old[(i - 1) * RNF_BANDS + k];
+        }
+        std::copy(rows, rows + RNF_MEM * RNF_BANDS, mem_out + n * RNF_MEM * RNF_BANDS);
+        feat[RNF_FEATURES - 2] = rnf_pitch_feature(pitch_index[n]);
+        silence[n] = static_cast<float>(energy) < 0.04f;
+        for (int p = 0; p < RNF_MEM * (RNF_MEM - 1) / 2; ++p) {
+            int i, j;
+            rnf_pair(p, &i, &j);
+            dist[i * RNF_MEM + j] = dist[j * RNF_MEM + i] = rnf_dist(rows, i, j);
+        }
+        for (int i = 0; i < RNF_MEM; ++i) {
+            row_min[i] = 3.0e38f;
+            for (int j = 0; j < RNF_MEM; ++j)
+                if (j != i) row_min[i] = fminf(row_min[i], dist[i * RNF_MEM + j]);
+        }
+        feat[RNF_FEATURES - 1] = rnf_variability(row_min);
+    }
+    return 0;
+}
 
 // vad_front per stream, as its block runs it: the ext row and the kept
 // window staged, thread o's decimated sample, the history, then the frames'
@@ -752,6 +922,12 @@ def host_lib(tmp_path_factory):
     lib.host_dfn_spec_synth.restype = _I
     lib.host_env_scan.argtypes = (_P,) * 4 + (_I, _I)
     lib.host_env_scan.restype = _I
+    lib.host_rnnoise_pitch.argtypes = (_P,) * 12 + (_I,)
+    lib.host_rnnoise_pitch.restype = _I
+    lib.host_rnnoise_features.argtypes = (_P,) * 15 + (_I,)
+    lib.host_rnnoise_features.restype = _I
+    lib.host_rnnoise_best_pitch.argtypes = (_P, _P, _I, _I, _P)
+    lib.host_rnnoise_best_pitch.restype = _I
     lib.host_quotient_mismatches.argtypes = (_I, _I)
     lib.host_quotient_mismatches.restype = ctypes.c_longlong
     return lib
@@ -1406,3 +1582,183 @@ def test_dfn_spec_synth_host_build_matches_plain(host_lib, atten, beta):
                                    torch.as_tensor(coefs), torch.as_tensor(hist), atten,
                                    beta).numpy()
     np.testing.assert_allclose(y, yp, atol=1e-6 * np.abs(yp).max())
+
+
+# ---------------------------------------------------------------------------
+# rnnoise_pitch, rnnoise_features (the RNNoise frame)
+# ---------------------------------------------------------------------------
+
+RN_FRAMES = 60
+
+
+def _rnnoise_audio(seed: int) -> np.ndarray:
+    """``[NM, RN_FRAMES * 480]`` PCM-scaled, five classes by stream (i % 5):
+    a voice whose pitch glides and wobbles over 95-330 Hz (harmonics 1-8 at
+    1/h, bursts at 2-4 Hz), the same voice pausing into digital silence for
+    frames 20-34, mains hum (50.4 Hz and harmonics), sibilance (noise high-
+    passed to 5-8 kHz in bursts) over a quiet voice, and a low voice whose
+    period is over 5 ms."""
+    rng = np.random.default_rng(seed)
+    n_s = RN_FRAMES * 480
+    t = np.arange(n_s) / 48000.0
+    out = np.zeros((NM, n_s))
+    for i in range(NM):
+        cls = i % 5
+        lo, hi = [(95.0, 330.0), (120.0, 260.0), (50.4, 50.4), (150.0, 220.0),
+                  (70.0, 110.0)][cls]
+        f0 = lo + (hi - lo) * (0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.3, 0.8) * t
+                                                  + rng.uniform(0, 6.3)))
+        phase = 2 * np.pi * np.cumsum(f0) / 48000.0
+        voice = sum(np.sin(h * phase + rng.uniform(0, 6.3)) / h for h in range(1, 9))
+        on = np.sin(2 * np.pi * rng.uniform(2.0, 4.0) * t + rng.uniform(0, 6.3)) > -0.4
+        x = 0.25 * voice * (on if cls != 2 else 1.0)
+        if cls == 3:
+            hiss = np.diff(rng.standard_normal(n_s + 1))
+            x = 0.2 * x + 0.3 * hiss * (np.sin(2 * np.pi * 3.0 * t) > 0.3)
+        x = x + 1e-3 * rng.standard_normal(n_s)
+        if cls == 1:
+            x[20 * 480:35 * 480] = 0.0
+        out[i] = x * rng.uniform(0.3, 1.0)
+    return (out * 32768.0).astype(np.float32)
+
+
+def _top_two_close(xcorr, y, length):
+    """Per stream: the twin's two best ``_find_best_pitch`` scores within
+    1e-6 relative of each other."""
+    csum = torch.cumsum(y * y, dim=-1)
+    csum = torch.cat([torch.zeros_like(csum[:, :1]), csum], dim=-1)
+    i = torch.arange(xcorr.shape[-1])
+    syy = torch.clamp_min(1.0 + csum[:, i + length] - csum[:, i], 1.0)
+    top = torch.topk(torch.where(xcorr > 0, xcorr * xcorr / syy, -1.0), 2).values
+    return (top[:, 0] - top[:, 1]).abs() <= 1e-6 * top[:, 0].abs()
+
+
+def _flat_peak(a, b, c):
+    """Per stream: one side of the pseudo-interpolation's test on the
+    correlations ``a, b, c`` within 1e-6 of their magnitude."""
+    scale = 1e-6 * torch.maximum(torch.maximum(a.abs(), b.abs()), c.abs())
+    return (((c - a) - 0.7 * (b - a)).abs() <= scale) | (((a - c) - 0.7 * (b - c)).abs()
+                                                         <= scale)
+
+
+def _pitch_near_ties(pitch_buf, period):
+    """Per stream, whether the twin's pitch rests on a near tie that a
+    correlation summed in another order can turn: the coarse or the fine
+    search's top two scores within 1e-6 relative, or the pseudo-
+    interpolation of the fine search or of remove_doubling's period
+    ``period`` on a peak whose test is within 1e-6 of its correlations."""
+    c = trn._consts(torch.device("cpu"))
+    x24 = trn._pitch_downsample(pitch_buf, c)
+    x_lp = x24[:, trn.PITCH_MAX_PERIOD // 2:]
+    x4, y4 = x_lp[:, 0::2][:, :240], x24[:, 0::2]
+    xc12 = trn._sliding_inner(y4, x4, 169)
+    c0, c1 = trn._find_best_pitch(xc12, y4, 240)
+    ext = trn._sliding_inner(x24, x_lp, 385)
+    lags = torch.arange(339)
+    near = ((lags - 2 * c0[:, None]).abs() <= 2) | ((lags - 2 * c1[:, None]).abs() <= 2)
+    xc24 = torch.where(near, torch.clamp_min(ext[:, :339], -1.0), 0.0)
+    b0, _ = trn._find_best_pitch(xc24, x24, 480)
+    idx = torch.clamp(b0, 1, 337).long()[:, None]
+    fine = _flat_peak(*torch.gather(xc24, 1, torch.cat([idx - 1, idx, idx + 1], 1)).unbind(1))
+    ts = torch.clamp(period.long() // 2, 1, 383)[:, None]
+    rows = 384 - torch.cat([ts - 1, ts, ts + 1], 1)
+    final = _flat_peak(*torch.gather(ext, 1, rows).unbind(1))
+    return _top_two_close(xc12, y4, 240) | _top_two_close(xc24, x24, 480) | fine | final
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_rnnoise_frame_kernels_host_build_match_plain(host_lib, seed):
+    """``rnnoise_pitch`` and ``rnnoise_features`` as their blocks run them
+    against the twins, over 60 consecutive frames of 11 streams from the
+    trained model's state (each frame's inputs from the twin's frame before,
+    so a difference does not carry over): voices whose pitch glides (so
+    remove_doubling takes sub-periods), a voice pausing into digital silence
+    (the silence flag set), hum, sibilance. The new pitch buffer and, where
+    the period agrees, the windowed pitch-delayed frame are equal; the period
+    is equal on every frame but a near tie of the twin's (the correlations'
+    sums run in another order than the twin's conv1d); the gain 1e-4 (it
+    divides correlations whose sums cancel); features, the cepstral memory
+    and Exp 2e-5 absolute, the band energies 2e-6 relative (f64 band sums
+    and DCT rows against the twin's f32 matmuls; log10 within an ulp); the
+    silence flag equal."""
+    c = trn._consts(torch.device("cpu"))
+    params = trn.default_params()
+    audio = _rnnoise_audio(seed)
+    st = trn.rnnoise_state_init(n=NM, device="cpu")
+    takes = silent = ties = 0
+    for f in range(RN_FRAMES):
+        xf = torch.as_tensor(audio[:, f * 480:(f + 1) * 480])
+        x_hp, _ = tbq.apply_fixed(trn._HP_COEFFS, st["hp_mem"][:, None, :], xf)
+        X = trn._fwd(torch.cat([st["analysis_mem"], x_hp], -1) * c["window"])
+        buf_t, period_t, gain_t, p_frame_t = trn.rnnoise_pitch_plain(
+            st["pitch_buf"], x_hp, st["last_period"], st["last_gain"])
+        got = dict(buf=np.empty((NM, 1728), np.float32), period=np.empty(NM, np.int32),
+                   gain=np.empty(NM, np.float32), p_frame=np.empty((NM, 960), np.float32))
+        ins = [np.ascontiguousarray(a.numpy()) for a in (
+            st["pitch_buf"], x_hp, st["last_period"], st["last_gain"], c["lagw"], c["decay"],
+            c["second_check"], c["window"])]
+        assert host_lib.host_rnnoise_pitch(*map(_ptr, ins), _ptr(got["buf"]),
+                                           _ptr(got["period"]), _ptr(got["gain"]),
+                                           _ptr(got["p_frame"]), NM) == 0
+        np.testing.assert_array_equal(got["buf"], buf_t.numpy())
+        same = got["period"] == period_t.numpy()
+        tie = _pitch_near_ties(buf_t, period_t).numpy()
+        assert (same | tie).all(), (f, got["period"], period_t.numpy())
+        ties += int((~same).sum())
+        np.testing.assert_array_equal(got["p_frame"][same], p_frame_t.numpy()[same])
+        np.testing.assert_allclose(got["gain"][same], gain_t.numpy()[same], atol=1e-4)
+        x24 = trn._pitch_downsample(buf_t, c)
+        raw, _ = trn._pitch_search(x24[:, 384:], x24)
+        takes += int(((period_t - 2 * torch.clamp_max((768 - raw) // 2, 383)).abs() > 1).sum())
+
+        P = trn._fwd(p_frame_t)
+        want = trn.rnnoise_features_plain(X, P, st["cepstral_mem"], period_t)
+        out = dict(features=np.empty((NM, 42), np.float32),
+                   mem=np.empty((NM, 8, 22), np.float32),
+                   Ex=np.empty((NM, 22), np.float32), Ep=np.empty((NM, 22), np.float32),
+                   Exp=np.empty((NM, 22), np.float32), silence=np.empty(NM, np.uint8))
+        ins = [np.ascontiguousarray(a) for a in (
+            torch.view_as_real(X).numpy(), torch.view_as_real(P).numpy(),
+            st["cepstral_mem"].numpy(), period_t.numpy(), c["band_w"].numpy(),
+            c["band_edges"].numpy(), c["dct_t"].numpy(), c["ceps_offset"].numpy(),
+            c["pc_offset"].numpy())]
+        assert host_lib.host_rnnoise_features(*map(_ptr, ins), *map(_ptr, out.values()),
+                                              NM) == 0
+        for name, w in zip(("features", "mem", "Ex", "Ep", "Exp"), want):
+            if name in ("Ex", "Ep"):
+                np.testing.assert_allclose(out[name], w.numpy(), rtol=2e-6, err_msg=name)
+            else:
+                np.testing.assert_allclose(out[name], w.numpy(), atol=2e-5, err_msg=name)
+        np.testing.assert_array_equal(out["silence"].astype(bool), want[5].numpy())
+        silent += int(want[5].sum())
+        st, _, _ = trn.rnnoise_frame(params, st, xf)
+    # what the signals are for: sub-periods taken, silent frames, few ties
+    assert takes >= 10 and silent >= 10 and ties <= 3, (takes, silent, ties)
+
+
+@pytest.mark.parametrize("case", ["repeated", "none_positive", "random"])
+def test_rnnoise_best_pitch_ties_as_argmax(host_lib, case):
+    """The kernel's top two (score, lag) pairs against ``_find_best_pitch``
+    where the scores tie exactly: a row whose best correlation repeats at
+    three lags and whose second repeats twice (argmax takes the first of
+    each), a row with no positive correlation ((0, 1)), and a random row;
+    over a flat signal (every lag's energy the same) and a random one."""
+    rng = np.random.default_rng(95)
+    n_lags, length = 169, 240
+    for y in (np.full(n_lags + length, 0.5, np.float32),
+              rng.standard_normal(n_lags + length).astype(np.float32)):
+        if case == "repeated":
+            xc = rng.uniform(-1.0, 0.5, n_lags).astype(np.float32)
+            xc[[40, 7, 120]] = 2.0
+            xc[[3, 90]] = 1.5
+            if y[0] != 0.5:  # equal scores need equal energies at the tied lags
+                y[:] = 0.5
+        elif case == "none_positive":
+            xc = -rng.uniform(0.0, 1.0, n_lags).astype(np.float32)
+        else:
+            xc = rng.standard_normal(n_lags).astype(np.float32)
+        best = np.empty(2, np.int32)
+        assert host_lib.host_rnnoise_best_pitch(_ptr(xc), _ptr(y), n_lags, length,
+                                                _ptr(best)) == 0
+        want = trn._find_best_pitch(torch.as_tensor(xc)[None], torch.as_tensor(y)[None], length)
+        assert best.tolist() == [int(want[0]), int(want[1])], (case, best, want)
